@@ -1,0 +1,49 @@
+"""The port stands alone: it imports neither ``jax`` nor ``monorun_tpu``.
+
+A fresh interpreter with both names blocked in ``sys.modules`` imports
+every module of ``monorun_tpu_torch``; and no source file of the package
+names either in an import statement.
+"""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import monorun_tpu_torch
+
+PKG = Path(monorun_tpu_torch.__file__).parent
+BLOCKED = ("jax", "jaxlib", "flax", "monorun_tpu")
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    names = [m.name for m in pkgutil.walk_packages([str(PKG)], "monorun_tpu_torch.")]
+    assert "monorun_tpu_torch.apis.inference" in names
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=PKG.parent, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_no_source_file_imports_jax_or_the_reference():
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] not in BLOCKED, f"{path}: imports {m}"

@@ -1,0 +1,73 @@
+"""Weights between the port and the JAX package.
+
+The port's state dict (reference mmdet key names) is saved with
+``torch.save``, converted by the JAX package's own ``.pth`` converter,
+and turned back by the port's ``from_jax_params``: every tensor must come
+back bit for bit. ``load_pth`` loads a reference-style checkpoint (with
+its ``num_batches_tracked`` and loss buffers) strictly.
+"""
+
+import jax
+import numpy as np
+import torch
+
+from monorun_tpu.config import get_config
+from monorun_tpu.models import init_detector
+from monorun_tpu.utils.checkpoint import convert_torch_checkpoint
+from monorun_tpu_torch.config import get_config as tget_config
+from monorun_tpu_torch.models.detector import MonoRUn, init_random_weights
+from monorun_tpu_torch.utils.weights import from_jax_params, load_pth
+
+from test_torch_serve import H, W, tiny_config
+
+
+def _port_model(seed=0):
+    model = init_random_weights(MonoRUn(tiny_config(tget_config)),
+                                torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():   # non-trivial values in every tensor
+        for t in list(model.parameters()) + list(model.buffers()):
+            t.add_(0.05 * torch.rand(t.shape, generator=gen))
+    return model
+
+
+def test_pth_round_trip_through_the_jax_converter(tmp_path):
+    model = _port_model()
+    sd = model.state_dict()
+    pth = tmp_path / "port.pth"
+    torch.save({"state_dict": sd}, pth)
+    _, variables = init_detector(tiny_config(get_config), jax.random.PRNGKey(0),
+                                 (H, W), fast=True)
+    params, stats, _, report = convert_torch_checkpoint(
+        str(pth), variables["params"], variables["batch_stats"]
+    )
+    assert set(report.values()) == {"ok"}, report
+    back = from_jax_params(params, stats)
+    assert set(back) == set(sd)
+    for k, v in sd.items():
+        torch.testing.assert_close(back[k], v, rtol=0, atol=0, msg=k)
+
+
+def test_load_pth_reference_layout(tmp_path):
+    model = _port_model(seed=3)
+    sd = dict(model.state_dict())
+    # what a reference checkpoint carries beyond the serving weights
+    sd["backbone.bn1.num_batches_tracked"] = torch.tensor(0)
+    sd["roi_head.projection_head.loss_proj.mean_inv_std"] = torch.tensor(1.0)
+    pth = tmp_path / "ref.pth"
+    torch.save({"state_dict": sd, "meta": {"epoch": 1}}, pth)
+    fresh = load_pth(MonoRUn(tiny_config(tget_config)), str(pth))
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(fresh.state_dict()[k], v, rtol=0, atol=0)
+
+
+def test_random_init_rules():
+    model = init_random_weights(MonoRUn(tiny_config(tget_config)),
+                                torch.Generator().manual_seed(0))
+    w = model.backbone.layer1[0].conv2.weight
+    fan_in = w[0].numel()
+    assert abs(float(w.detach().std()) * np.sqrt(fan_in) - 1.0) < 0.05
+    assert not model.roi_head.noc_head.latent_decoder.weight.any()
+    bn = model.backbone.bn1
+    assert (bn.weight == 1).all() and (bn.running_var == 1).all()
+    assert not bn.bias.any() and not bn.running_mean.any()
