@@ -11,30 +11,56 @@ Run from the repository root:
 Phases, each printing its own lines:
 
 1. the card's name and power limit, as nvidia-smi gives them;
-2. the build of the hand-written CUDA RoIAlign kernel
-   (``monorun_tpu_torch/csrc/roi_align.cu``) from this checkout;
-3. the kernel against its plain PyTorch version on a kitti_multiclass-sized
-   pyramid (batch 8, C=256, levels 96x320, 96x320, 48x160, 24x80, 12x40)
-   at the three main-path shapes, in bfloat16 and float32, with times;
+2. the build of every hand-written CUDA RoIAlign kernel
+   (``monorun_tpu_torch/csrc/*.cu``, one nvcc per source, in parallel);
+3. the direct kernel (``csrc/roi_align.cu``) against its plain PyTorch
+   version on a kitti_multiclass-sized pyramid (batch 8, C=256, levels
+   96x320, 96x320, 48x160, 24x80, 12x40) at the three main-path shapes,
+   in bfloat16 and float32, with times;
 4. serving kitti_multiclass at batch 8, full width, seeded random weights,
-   through ``init_inference`` -> ``InferenceSession.run``: output shapes,
-   finiteness, validity masks, exactly 3 kernel launches per forward, the
-   three aligns re-run on the forward's own features and RoIs through the
-   kernel and the plain version, ms per batch and frames/s;
+   through ``init_inference`` -> ``InferenceSession.run`` with the align
+   switches unset: output shapes, finiteness, validity masks, exactly 3
+   launches of the direct kernel and none of the staged ones per forward,
+   no staged pyramid, the three aligns re-run on the forward's own
+   features and RoIs through the kernel and the plain version, ms per
+   batch and frames/s;
 5. a tiny float32 configuration served on the GPU (kernel) and on the CPU
    (plain version) with the same weights and random draws, compared;
-6. a ``kernels`` JSON line and, last, the JSON result line.
+6. each staged kernel (tile, band tiered, band packed, band matmul, and
+   matmul with its row product in bfloat16) against its plain version on
+   the same prepared inputs: the forward's own three aligns, in bfloat16
+   and float32, with the kernel's time, the time of the call with its
+   preparation, the plain version's time and the bound; in bfloat16 also
+   its gap to the gather version (float32 weights) on the RoIs whose taps
+   fit the staged window (lazy-level slivers overrun it, as in the JAX
+   package's kernels; their count and gap are printed);
+7. serving again under each align setting that selects a staged kernel
+   (band + MONORUN_BAND_TIERED=1, auto + MONORUN_BAND_TIERED=1, bandmm,
+   bandmm + MONORUN_BAND_T1_BF16=1): detections checked as in phase 4,
+   the launches of every kernel per forward, ms per batch;
+8. the align micro-bench's A/B (``monorun_tpu_torch.tools.micro_bench``
+   ``align48``), the path that reaches the tile and packed kernels;
+9. a ``kernels`` JSON line and, last, the JSON result line.
+
+Every path (phases 4, 7 and 8) runs with all launch counts set to 0 just
+before it and read just after; a kernel that its path did not launch fails
+the run.
 
 Tolerances (kernel against plain version; both accumulate in float32):
 bfloat16 |d| <= 2^-7 |ref| + 1e-5 max(1, max|ref|), one bfloat16 rounding
 of the output apart; float32 |d| <= 1e-5 |ref| + 1e-5 max(1, max|ref|),
-the summation order of up to 36 samples x 4 taps.
+the summation order of up to 36 samples x 4 taps; with the row product in
+bfloat16 (matmul t1), one rounding of t1 more: + 2^-8 max|x|. The staged
+kernels' gap to the gather version in bfloat16 (their interpolation
+weights are rounded to bfloat16, and each axis's weights sum to at most
+1): |d| <= 2^-7 max|x| + 2^-7 |ref|.
 
 Bounds: the least time for a call is the larger of the bytes it must move
 (the feature rows its taps touch with non-zero weight, the RoIs and the
 output, each once) over 3.35 TB/s and its bilinear FMAs (4 per channel per
 computed sample, 2 FLOPs each) over 67 TFLOP/s, the H100 SXM's float32
-rate outside the tensor cores.
+rate outside the tensor cores. Every kernel computes the same function,
+so the staged kernels share the direct kernel's bound on the same call.
 
 Any failed phase, or no GPU, exits non-zero without the last line.
 """
@@ -45,7 +71,6 @@ import argparse
 import dataclasses
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -57,7 +82,12 @@ from monorun_tpu_torch.config import get_config
 from monorun_tpu_torch.data.pipeline import device_preprocess
 from monorun_tpu_torch.models.detector import HeadDraws
 from monorun_tpu_torch.ops import roi_align as ra
+from monorun_tpu_torch.ops import roi_align_band as rb
+from monorun_tpu_torch.ops import roi_align_cuda as rc
+from monorun_tpu_torch.ops import roi_align_tile as rt
 from monorun_tpu_torch.ops.roi_align_cuda import roi_align_kernel
+from monorun_tpu_torch.tools import micro_bench
+from monorun_tpu_torch.tools.micro_bench import align_env, card_line, device_ms
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -67,6 +97,24 @@ KERNEL_SOURCE = "monorun_tpu_torch/csrc/roi_align.cu"
 REPLACES = ("monorun_tpu/ops/roi_align_band.py:57 (_band_kernel), "
             "monorun_tpu/ops/roi_align_sorted.py:99 (_sorted_kernel)")
 TOLERANCE = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (1e-5, 1e-5)}
+ALL_KERNELS = (roi_align_kernel, *rc.STAGED_KERNELS)
+KERNEL_NAMES = {roi_align_kernel: "roi_align", rc.tile_kernel: "roi_align_tile",
+                rc.band_tiered_kernel: "roi_align_band_tiered",
+                rc.band_packed_kernel: "roi_align_band_packed",
+                rc.band_matmul_kernel: "roi_align_band_matmul"}
+SOURCES = {"roi_align": KERNEL_SOURCE,
+           "roi_align_tile": "monorun_tpu_torch/csrc/roi_align_tile.cu",
+           "roi_align_band_tiered": "monorun_tpu_torch/csrc/roi_align_band.cu",
+           "roi_align_band_packed": "monorun_tpu_torch/csrc/roi_align_mma.cu",
+           "roi_align_band_matmul": "monorun_tpu_torch/csrc/roi_align_mma.cu"}
+REPLACED = {"roi_align": REPLACES,
+            "roi_align_tile": "monorun_tpu/ops/roi_align_pallas.py:55 (_kernel)",
+            "roi_align_band_tiered": "monorun_tpu/ops/roi_align_band.py:142 "
+                                     "(_band_kernel_tiered)",
+            "roi_align_band_packed": "monorun_tpu/ops/roi_align_band.py:330 "
+                                     "(_band_kernel_packed)",
+            "roi_align_band_matmul": "monorun_tpu/ops/roi_align_band.py:227 "
+                                     "(_band_kernel_matmul)"}
 
 
 class SmokeFailure(Exception):
@@ -89,23 +137,6 @@ def max_err(got: torch.Tensor, ref: torch.Tensor):
     bound = rtol * ref.abs() + atol_rel * ref.abs().max().clamp(min=1.0)
     ok = bool(torch.isfinite(got).all()) and bool((d <= bound).all())
     return float(d.max()), ok
-
-
-def device_ms(fn, reps: int, flush: torch.Tensor) -> float:
-    """Median device time of ``fn`` over ``reps`` runs, each after an L2
-    flush (a write larger than the 50 MB cache), by CUDA events."""
-    fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
 
 
 def align_work(feats, rois, strides, out_size, finest, max_ratio):
@@ -237,37 +268,63 @@ def check_detections(det, cfg, batch):
           "is not the identity")
 
 
+def reset_counts() -> None:
+    for k in ALL_KERNELS:
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    return {KERNEL_NAMES[k]: k.launches for k in ALL_KERNELS}
+
+
+def serve_requests(sess, requests, record=False):
+    """Serves each request, synchronised; returns (ms each, detections,
+    the first forward's aligns as (feats, rois, head_cfg, out_size,
+    pyramid, out) when ``record``)."""
+    recorded = []
+    model = sess.model
+    align = model._align
+
+    def recording_align(feats, rois, head_cfg, out_size, tile_h, pyramid):
+        out = align(feats, rois, head_cfg, out_size, tile_h, pyramid)
+        recorded.append((feats, rois, head_cfg, out_size, pyramid, out))
+        return out
+
+    times, dets = [], []
+    try:
+        for i, req in enumerate(requests):
+            model._align = recording_align if (record and i == 0) else align
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dets.append(sess.run(*req))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        model._align = align
+    return times, dets, recorded
+
+
+def check_launches(counts: dict, per_forward: dict, forwards: int, what: str) -> None:
+    want = {name: per_forward.get(name, 0) * forwards for name in counts}
+    print(f"launches {what}: {json.dumps(counts)} over {forwards} forwards", flush=True)
+    check(counts == want, f"{what}: launches {counts} in {forwards} forwards, "
+                          f"expected {want}")
+
+
 def phase_serve(cfg, flush, dev, card, profile):
     sess = init_inference("kitti_multiclass", batch_size=BATCH, device="cuda", seed=0)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(1)
     requests = [kitti_inputs(cfg, BATCH, gen, dev) for _ in range(REQUESTS + 2)]
 
-    # record the aligns of one forward, as the detector calls them
-    recorded = []
-    model = sess.model
-    align = model._align
-
-    def recording_align(feats, rois, head_cfg, out_size):
-        out = align(feats, rois, head_cfg, out_size)
-        recorded.append((feats, rois, head_cfg, out_size, out))
-        return out
-
-    roi_align_kernel.launches = 0
-    times, dets = [], []
-    for i, req in enumerate(requests):
-        model._align = recording_align if i == 0 else align
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dets.append(sess.run(*req))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = roi_align_kernel.launches
-    model._align = align
+    with align_env({}):
+        reset_counts()
+        times, dets, recorded = serve_requests(sess, requests, record=True)
+        counts = read_counts()
     forwards = len(requests)
-    print(f"serve launches {launches} over {forwards} forwards", flush=True)
-    check(launches == 3 * forwards, f"the RoIAlign kernel launched {launches} times "
-          f"in {forwards} forwards, expected {3 * forwards}")
+    check_launches(counts, {"roi_align": 3}, forwards, "serve default")
+    check(all(r[4] is None for r in recorded),
+          "the default path built a staged pyramid")
 
     for det in dets:
         check_detections(det, cfg, BATCH)
@@ -280,10 +337,10 @@ def phase_serve(cfg, flush, dev, card, profile):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
     )), flush=True)
 
-    recs = []
+    recs, calls = [], []
     labels = ("proposals 7x7", "detections 7x7", "detections 14x14")
     with torch.inference_mode():
-        for label, (feats, rois, head_cfg, out_size, out) in zip(labels, recorded):
+        for label, (feats, rois, head_cfg, out_size, _, out) in zip(labels, recorded):
             n_lvl = len(head_cfg.featmap_strides)
             strides = ra.align_strides(cfg.neck.lazy_lower, head_cfg.featmap_strides)
             feats = [f.contiguous() for f in feats[:n_lvl]]
@@ -298,11 +355,145 @@ def phase_serve(cfg, flush, dev, card, profile):
             recs.append(compare_align(f"forward {label}", feats, rois, strides, out_size,
                                       head_cfg.finest_scale, head_cfg.align_max_ratio,
                                       flush))
+            calls.append((label, feats, rois, strides, out_size, head_cfg.finest_scale,
+                          head_cfg.align_max_ratio, recs[-1]))
     del recorded
 
     if profile:
         profile_serve(sess, requests[:3], ms, profile)
-    return recs, launches
+    return recs, counts, sess, requests, calls
+
+
+# ---- staged kernels against their plain version -----------------------------
+
+# variant -> (kernel, prepare keywords); tile_h rounds to 32 on every align
+VARIANTS = {
+    "tile": (rc.tile_kernel, {}),
+    "tiered": (rc.band_tiered_kernel, dict(tiered=True, kroi=4)),
+    "packed": (rc.band_packed_kernel, dict(packed=True, kroi=4)),
+    "matmul": (rc.band_matmul_kernel, dict(matmul=True, kroi=16)),
+    "matmul t1 bf16": (rc.band_matmul_kernel,
+                       dict(matmul=True, kroi=16, t1_dtype=torch.bfloat16)),
+}
+
+
+def staged_ok(got, ref, feats, t1_rounded):
+    """(max abs error, within the dtype's tolerance)."""
+    rtol, atol_rel = TOLERANCE[ref.dtype]
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    bound = rtol * ref.abs() + atol_rel * ref.abs().max().clamp(min=1.0)
+    if t1_rounded:
+        bound = bound + 2.0 ** -8 * max(float(f.float().abs().max()) for f in feats)
+    return float(d.max()), bool(torch.isfinite(got).all()) and bool((d <= bound).all())
+
+
+def phase_staged(calls, flush):
+    """Each staged kernel against its plain version on the forward's own
+    aligns, in bfloat16 and float32."""
+    recs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        feats_all = [f.to(dtype) for f in calls[0][1]]
+        pyramid = rt.prepare_flat_pyramid(feats_all)
+        pyramid_ms = device_ms(lambda: rt.prepare_flat_pyramid(feats_all), 10, flush)
+        print(f"staged pyramid {dname}: {pyramid_ms} ms", flush=True)
+        for label, feats, rois, strides, out_size, finest, mr, _ in calls:
+            feats = [f.to(dtype) for f in feats]
+            gather = ra.multilevel_roi_align(feats, rois, strides, out_size, finest,
+                                             max_ratio=mr, long_span_cap=ra.LONG_SPAN_CAP)
+            nbytes, flops = align_work(feats, rois, strides, out_size, finest, mr)
+            # RoIs whose taps overrun the staged window (lazy-level slivers,
+            # see roi_align_tile.TileGeometry.fits) are held to their plain
+            # version only
+            fits = rt.roi_tile_geometry(rois, pyramid.sizes, strides, out_size, finest, mr,
+                                        rt.MAX_TH, rt.MAX_TW, dtype).fits
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+            for variant, (kernel, kw) in VARIANTS.items():
+                def prepare():
+                    if variant == "tile":
+                        return rt.prepare_tile_call(feats, rois, strides, out_size, finest,
+                                                    mr, pyramid=pyramid)
+                    return rb.prepare_band_call(feats, rois, strides, out_size, finest, mr,
+                                                pyramid=pyramid, **kw)
+                plain = rt.tile_call_plain if variant == "tile" else rb.band_call_plain
+                with torch.inference_mode():
+                    call = prepare()
+                    got, ref = kernel(call), plain(call)
+                    torch.cuda.synchronize()
+                    t1_rounded = kw.get("t1_dtype") is not None
+                    err, ok = staged_ok(got, ref, feats, t1_rounded)
+                    gap = (got.float() - gather.float()).abs()
+                    xmax = max(float(f.float().abs().max()) for f in feats)
+                    gap_ok = bool((gap <= 2.0 ** -7 * xmax
+                                   + 2.0 ** -7 * gather.float().abs())[fits].all())
+                    rec = dict(kernel=KERNEL_NAMES[kernel], variant=variant,
+                               call=f"forward {label}", dtype=dname, rois=int(rois.shape[0]),
+                               out=list(out_size), max_abs_err=err,
+                               max_abs_ref=float(ref.float().abs().max()),
+                               gap_to_gather=float(gap[fits].max()),
+                               rois_overrunning=int((~fits).sum()),
+                               gap_overrunning=float(gap[~fits].max()) if (~fits).any()
+                               else 0.0,
+                               ms=device_ms(lambda: kernel(call), 10, flush),
+                               call_ms=device_ms(lambda: kernel(prepare()), 10, flush),
+                               plain_ms=device_ms(lambda: plain(call), 3, flush),
+                               bound_ms=max(t_bytes, t_ops),
+                               bound_by="bytes" if t_bytes >= t_ops else "operations")
+                print("staged " + json.dumps(rec), flush=True)
+                check(ok, f"{variant} kernel and its plain version disagree on {label} "
+                          f"({dname}): max abs error {err}")
+                check(gap_ok, f"{variant} kernel is farther than the weight rounding from "
+                              f"the gather version on {label} ({dname})")
+                recs.append(rec)
+            del gather
+        del pyramid, feats_all
+    return recs
+
+
+# ---- serving under the staged settings --------------------------------------
+
+SERVE_VARIANTS = (
+    ("band tiered", {"MONORUN_ALIGN_IMPL": "band", "MONORUN_BAND_TIERED": "1"},
+     {"roi_align_band_tiered": 3}),
+    ("auto tiered", {"MONORUN_BAND_TIERED": "1"},
+     {"roi_align_band_tiered": 1, "roi_align": 2}),
+    ("bandmm", {"MONORUN_ALIGN_IMPL": "bandmm"}, {"roi_align_band_matmul": 3}),
+    ("bandmm t1 bf16", {"MONORUN_ALIGN_IMPL": "bandmm", "MONORUN_BAND_T1_BF16": "1"},
+     {"roi_align_band_matmul": 3}),
+)
+SERVE_VARIANT_REQUESTS = 5     # 2 warm-up, 3 timed
+
+
+def phase_serve_variants(sess, requests, cfg, card):
+    paths = {}
+    for name, env, per_forward in SERVE_VARIANTS:
+        with align_env(env):
+            reset_counts()
+            times, dets, _ = serve_requests(sess, requests[:SERVE_VARIANT_REQUESTS])
+            counts = read_counts()
+        check_launches(counts, per_forward, len(times), f"serve {name}")
+        for det in dets:
+            check_detections(det, cfg, BATCH)
+        ms = statistics.median(times[2:])
+        print("serve " + json.dumps(dict(
+            config="kitti_multiclass", setting=name, env=env, card=card, batch=BATCH,
+            ms_per_batch=ms, frames_per_s=BATCH * 1e3 / ms, ms_each=times,
+            valid_detections=[int(d.valid.sum()) for d in dets])), flush=True)
+        paths[name] = counts
+    return paths
+
+
+def phase_micro():
+    """The align micro-bench's A/B: every implementation at 48 RoIs per
+    image, the path of the tile and packed kernels."""
+    reset_counts()
+    micro_bench.run(BATCH, ("align48",), reps=3)
+    counts = read_counts()
+    print(f"launches micro-bench align48: {json.dumps(counts)}", flush=True)
+    for name, n in counts.items():
+        check(n > 0, f"the micro-bench A/B did not launch {name}")
+    return counts
 
 
 def profile_serve(sess, requests, ms_per_batch, table_path):
@@ -442,12 +633,22 @@ def to_cpu(det):
 # ---- main ----------------------------------------------------------------
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
+def kernel_record(name, launches, recs):
+    """One entry of the kernels line: agreement over every comparison, and
+    the times and bound of the three main-path calls in bfloat16 summed
+    (one forward's aligns)."""
+    timed = [r for r in recs if r["dtype"] == "bfloat16" and "ms" in r]
+    return dict(
+        name=name, route="cuda", source=SOURCES[name], replaces=REPLACED[name],
+        launches=launches, max_abs_err=max(r["max_abs_err"] for r in recs),
+        ms=sum(r["ms"] for r in timed), plain_ms=sum(r["plain_ms"] for r in timed),
+        bound_ms=sum(r["bound_ms"] for r in timed),
+        bound_by=max(timed, key=lambda r: r["bound_ms"])["bound_by"],
+        library_ms=None,
+        calls=[{k: r.get(k) for k in ("call", "variant", "dtype", "rois", "out", "ms",
+                                      "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "max_abs_err")} for r in recs],
+    )
 
 
 def main() -> int:
@@ -465,37 +666,41 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     try:
-        roi_align_kernel.build()
-        print(f"build roi_align {roi_align_kernel.build_seconds:.2f} s", flush=True)
-        for line in roi_align_kernel.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+        rc.build_all()
+        print(f"build {len(rc.build_all.libs)} libraries {rc.build_all.seconds:.2f} s",
+              flush=True)
+        for line in rc.build_all.log.splitlines():
+            if line.startswith("==") or "registers" in line or "spill" in line:
                 print(f"build {line.strip()}", flush=True)
 
         cfg = get_config("kitti_multiclass")
         flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-        synthetic = phase_kernel(cfg, flush, dev)
-        forward, launches = phase_serve(cfg, flush, dev, card, args.profile)
-        phase_tiny()
+        with align_env({}):
+            synthetic = phase_kernel(cfg, flush, dev)
+        forward, default_counts, sess, requests, calls = phase_serve(cfg, flush, dev, card,
+                                                                     args.profile)
+        with align_env({}):
+            phase_tiny()
+        staged = phase_staged(calls, flush)
+        del calls
+        paths = phase_serve_variants(sess, requests, cfg, card)
+        micro = phase_micro()
     except SmokeFailure as e:
         print(f"FAIL {e}", file=sys.stderr)
         return 1
 
-    kernel = dict(
-        name="roi_align", route="cuda", source=KERNEL_SOURCE, replaces=REPLACES,
-        launches=launches,
-        max_abs_err=max(r["max_abs_err"] for r in synthetic + forward),
-        # one forward's three calls, on the forward's own inputs
-        ms=sum(r["ms"] for r in forward),
-        plain_ms=sum(r["plain_ms"] for r in forward),
-        bound_ms=sum(r["bound_ms"] for r in forward),
-        bound_by=("bytes" if sum(r["bytes"] / HBM_BYTES_PER_S for r in forward)
-                  >= sum(r["flops"] / FP32_FLOPS for r in forward) else "operations"),
-        library_ms=None,
-        calls=[{k: r[k] for k in ("call", "rois", "out", "ms", "plain_ms", "bound_ms",
-                                  "bound_by", "max_abs_err")} for r in forward],
-    )
+    direct = kernel_record("roi_align", default_counts["roi_align"], forward)
+    direct["max_abs_err"] = max(r["max_abs_err"] for r in synthetic + forward)
+    launches = {"roi_align_tile": micro["roi_align_tile"],
+                "roi_align_band_tiered": paths["band tiered"]["roi_align_band_tiered"],
+                "roi_align_band_packed": micro["roi_align_band_packed"],
+                "roi_align_band_matmul": paths["bandmm"]["roi_align_band_matmul"]}
+    kernels = [direct] + [
+        kernel_record(name, n, [r for r in staged if r["kernel"] == name
+                                and r["variant"] != "matmul t1 bf16"])
+        for name, n in launches.items()]
     print(f"seconds {time.perf_counter() - t_start:.1f}", flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

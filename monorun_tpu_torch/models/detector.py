@@ -32,7 +32,7 @@ from ..data.pipeline import device_preprocess, scale_intrinsics
 from ..ops.nms import NEG_INF, nms_rotated_bev
 from ..ops.pnp import PnPConfig, pnp_uncert
 from ..ops.roi_align import (
-    align_strides, multilevel_roi_align_auto, roi_grid_centers,
+    align_strides, multilevel_roi_align_auto, prepare_pyramid, roi_grid_centers,
 )
 from .bbox_head import BBoxHead, get_det_bboxes
 from .fpn import FPNplus
@@ -134,12 +134,13 @@ class MonoRUn(nn.Module):
 
     # ---- inference -------------------------------------------------------
 
-    def _align(self, feats, rois, head_cfg, out_size):
+    def _align(self, feats, rois, head_cfg, out_size, tile_h, pyramid):
         n_lvl = len(head_cfg.featmap_strides)
         return multilevel_roi_align_auto(
             feats[:n_lvl], rois,
             align_strides(self.cfg.neck.lazy_lower, head_cfg.featmap_strides),
             out_size, head_cfg.finest_scale, max_ratio=head_cfg.align_max_ratio,
+            tile_h=tile_h, pyramid=pyramid,
         )
 
     def heads_forward(
@@ -172,7 +173,10 @@ class MonoRUn(nn.Module):
             [batch_col.repeat_interleave(P)[:, None], proposals.reshape(B * P, 4)], 1
         )
         rs = cfg.bbox_head.roi_feat_size
-        roi_feats = self._align(feats, rois, cfg.bbox_head, (rs, rs))
+        # one dual-orientation pyramid shared by the three aligns (None
+        # unless the environment selects a staged kernel)
+        pyr = prepare_pyramid(feats[: len(cfg.bbox_head.featmap_strides)])
+        roi_feats = self._align(feats, rois, cfg.bbox_head, (rs, rs), 24, pyr)
         cls_logits, deltas = heads.bbox_head(roi_feats)
         det_boxes, det_scores, det_labels, det_valid = get_det_bboxes(
             proposals, cls_logits.reshape(B, P, -1), deltas.reshape(B, P, -1),
@@ -192,7 +196,7 @@ class MonoRUn(nn.Module):
         )
 
         # ---- global head (factored MC dropout) ---------------------------
-        reg_feats = self._align(feats, det_rois, cfg.bbox_head, (rs, rs))
+        reg_feats = self._align(feats, det_rois, cfg.bbox_head, (rs, rs), 24, pyr)
         gout = heads.global_head(reg_feats, draws.mc_masks, generator)
         dim_enc, dim_var_enc, latent, _ = slice_pred(
             cfg.global_head, gout.dim_latent_pred, gout.dim_latent_var,
@@ -203,7 +207,7 @@ class MonoRUn(nn.Module):
 
         # ---- NOC head -----------------------------------------------------
         ns = cfg.noc_head.roi_size
-        noc_feats = self._align(feats, det_rois, cfg.noc_head, (ns, ns))
+        noc_feats = self._align(feats, det_rois, cfg.noc_head, (ns, ns), 32, pyr)
         flip = torch.zeros(B * K, dtype=torch.bool, device=dev)
         nout = heads.noc_head(noc_feats, latent, flat_labels, flip)
         noc_coder = NOCCoder(cfg.noc_head.noc_means, cfg.noc_head.noc_stds)

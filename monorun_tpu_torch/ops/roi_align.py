@@ -15,17 +15,25 @@ mmdet's SingleRoIExtractor level mapping:
 
 ``multilevel_roi_align`` is the plain PyTorch version: a static
 ``max_ratio`` grid with per-RoI sample masks, four tap gathers per sample,
-accumulated in float32. ``multilevel_roi_align_auto`` is what the
-detector calls: on CUDA tensors it launches the hand-written kernel
-(``roi_align_cuda.py``, ``csrc/roi_align.cu``) and raises if it cannot;
-on CPU tensors it runs the plain version.
+accumulated in float32. ``multilevel_roi_align_tiled`` is the plain
+separable version (``out = Y @ tile @ X^T`` with per-RoI interpolation
+matrices from ``axis_interp_matrix``), the arithmetic of the staged
+kernels (``roi_align_tile.py``, ``roi_align_band.py``).
+
+``multilevel_roi_align_auto`` is what the detector calls. It reads
+``MONORUN_ALIGN_IMPL`` (``auto | gather | sorted | band | bandmm``) and
+the ``MONORUN_BAND_*`` switches as the JAX package's dispatcher does
+(``align_choice``). On CUDA tensors it launches a hand-written kernel
+(``roi_align_cuda.py``) and raises if it cannot; on CPU tensors every
+setting runs the plain gather version.
 
 Layout is channels-last: levels (B, H_l, W_l, C), output (n, oh, ow, C).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import os
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -215,6 +223,184 @@ def multilevel_roi_align(
     return out
 
 
+def axis_interp_matrix(
+    coords: Tensor,       # (n, o, k) sample positions along one axis
+    kmask: Tensor,        # (n, 1, k) which of the k sub-samples exist
+    grid_count: Tensor,   # (n,) adaptive sub-sample count (for averaging)
+    origin: Tensor,       # (n,) tile origin (integer, as float)
+    size: Tensor,         # (n,) level extent along this axis
+    tile: int,
+) -> Tensor:
+    """Per-RoI interpolation matrix (n, o, tile) folding the bilinear
+    weights (the hat function max(0, 1 - |y - r|) over integer taps r),
+    the border rules and the bin averaging along one axis
+    (``monorun_tpu/ops/roi_align.py:_axis_interp_matrix``)."""
+    valid = (coords >= -1.0) & (coords <= size[:, None, None])
+    c = torch.minimum(coords.clamp(min=0.0), (size - 1.0)[:, None, None])
+    r = origin[:, None, None, None] + torch.arange(
+        tile, dtype=coords.dtype, device=coords.device)
+    hat = (1.0 - (c[..., None] - r).abs()).clamp(min=0.0)
+    w = hat * (valid & (kmask != 0))[..., None]
+    return w.sum(2) / grid_count[:, None, None]
+
+
+def separable_interp(Y: Tensor, tiles: Tensor, X: Tensor,
+                     t1_dtype: Optional[torch.dtype] = None) -> Tensor:
+    """``out[n, i, j, c] = sum_w X[n, j, w] sum_r Y[n, i, r] tiles[n, r, w, c]``
+    in float32; with ``t1_dtype`` the row product (and X) is rounded to
+    that dtype before the column product, as the band-matmul kernel's
+    stage-1 scratch does. Y (n, o, R), tiles (n, R, W, C), X (n, o, W)."""
+    t1 = torch.einsum("nir,nrwc->niwc", Y.float(), tiles.float())
+    Xf = X.float()
+    if t1_dtype is not None:
+        t1 = t1.to(t1_dtype).float()
+        Xf = X.to(t1_dtype).float()
+    return torch.einsum("njw,niwc->nijc", Xf, t1)
+
+
+def multilevel_roi_align_tiled(
+    features: Sequence[Tensor],   # per level (B, H_l, W_l, C)
+    rois: Tensor,                 # (n, 5) image coords
+    strides: Sequence[int],
+    out_size: Tuple[int, int],
+    finest_scale: float = 56.0,
+    max_ratio: int = 3,
+    tile_hw: Tuple[int, int] = (24, 44),
+    chunk_size: int = 256,
+    round_weights: bool = False,
+) -> Tensor:
+    """Plain separable RoIAlign (``roi_align.py:multilevel_roi_align_tiled``
+    of the JAX package): each RoI reads one (Th, Tw) tile of its level
+    (row segments of the flattened pyramid; overruns land in zero-weight
+    columns) and the output is ``Y (oh x Th) @ tile @ X^T (Tw x ow)``
+    accumulated in float32. ``round_weights`` rounds Y and X to the
+    features' dtype first, as every staged kernel's geometry does
+    (``roi_tile_geometry``). Levels by area alone (no span cap), one
+    orientation, as in the JAX function. Returns (n, oh, ow, C)."""
+    assert len(features) == len(strides)
+    B = features[0].shape[0]
+    C = features[0].shape[-1]
+    oh, ow = out_size
+    n = rois.shape[0]
+    Th, Tw = tile_hw
+    fdtype = features[0].dtype
+    dev = rois.device
+    sizes = [(f.shape[1], f.shape[2]) for f in features]
+    offsets, total = [], 0
+    for h, w in sizes:
+        offsets.append(total)
+        total += h * w
+    flat = torch.cat([f.reshape(B, -1, C) for f in features], dim=1).reshape(-1, C)
+    # guard row-segment overruns at the very end of the buffer
+    flat = torch.cat([flat, flat.new_zeros((Th + 2) * Tw, C)])
+    stride_arr = torch.tensor([float(s) for s in strides], device=dev)
+    h_arr = torch.tensor([float(h) for h, _ in sizes], device=dev)
+    w_arr = torch.tensor([float(w) for _, w in sizes], device=dev)
+    off_arr = torch.tensor(offsets, device=dev)
+    k = torch.arange(max_ratio, dtype=torch.float32, device=dev)
+
+    out = torch.empty((n, oh, ow, C), dtype=fdtype, device=dev)
+    for start in range(0, n, chunk_size):
+        rc = rois[start:start + chunk_size].float()
+        lvls = assign_fpn_levels(rc, len(sizes), finest_scale)
+        Hn, Wn = h_arr[lvls], w_arr[lvls]
+        x1, y1, x2, y2 = (rc[:, 1:5] / stride_arr[lvls][:, None] - 0.5).unbind(1)
+        bw, bh = _div(x2 - x1, ow), _div(y2 - y1, oh)
+        gw = torch.ceil(_div(x2 - x1, ow)).clamp(1, max_ratio)
+        gh = torch.ceil(_div(y2 - y1, oh)).clamp(1, max_ratio)
+        iy = torch.arange(oh, dtype=torch.float32, device=dev)
+        ix = torch.arange(ow, dtype=torch.float32, device=dev)
+        ys = (y1[:, None, None] + iy[None, :, None] * bh[:, None, None]
+              + (k[None, None, :] + 0.5) * bh[:, None, None] / gh[:, None, None])
+        xs = (x1[:, None, None] + ix[None, :, None] * bw[:, None, None]
+              + (k[None, None, :] + 0.5) * bw[:, None, None] / gw[:, None, None])
+        my = k[None, None, :] < gh[:, None, None]
+        mx = k[None, None, :] < gw[:, None, None]
+        y0 = torch.minimum(torch.floor(ys.amin((1, 2)).clamp(min=0.0)).clamp(min=0.0),
+                           (Hn - Th).clamp(min=0.0))
+        x0 = torch.minimum(torch.floor(xs.amin((1, 2)).clamp(min=0.0)).clamp(min=0.0),
+                           (Wn - Tw).clamp(min=0.0))
+        Y = axis_interp_matrix(ys, my[:, :1], gh, y0, Hn, Th)
+        X = axis_interp_matrix(xs, mx[:, :1], gw, x0, Wn, Tw)
+        if round_weights:
+            Y, X = Y.to(fdtype), X.to(fdtype)
+        base = rc[:, 0].long() * total + off_arr[lvls]
+        row0 = base + y0.long() * Wn.long() + x0.long()
+        idx = (row0[:, None, None]
+               + torch.arange(Th, device=dev)[None, :, None] * Wn.long()[:, None, None]
+               + torch.arange(Tw, device=dev)[None, None, :])
+        out[start:start + rc.shape[0]] = separable_interp(Y, flat[idx], X).to(fdtype)
+    return out
+
+
+# ---- dispatch -------------------------------------------------------------
+
+ALIGN_IMPLS = ("auto", "gather", "sorted", "band", "bandmm")
+# proposal scale: from this many RoIs (in bfloat16) "auto" takes the band
+# route, as the JAX dispatcher does (roi_align.py:519-522)
+BAND_MIN_ROIS = 2048
+
+
+class AlignChoice(NamedTuple):
+    """What ``multilevel_roi_align_auto`` runs: ``gather`` (the plain
+    version), ``kernel`` (``csrc/roi_align.cu``, the port of the band and
+    sorted TPU kernels), ``tiered`` (``csrc/roi_align_band.cu``) or
+    ``bandmm`` (``csrc/roi_align_mma.cu``), with the band options."""
+
+    impl: str
+    kroi: int = 0
+    t1_dtype: Optional[torch.dtype] = None
+
+
+def _env_on(name: str) -> bool:
+    return os.environ.get(name, "0") == "1"
+
+
+def align_choice(n_rois: int, dtype: torch.dtype, on_cuda: bool) -> AlignChoice:
+    """The implementation an align of ``n_rois`` RoIs in ``dtype`` takes,
+    from ``MONORUN_ALIGN_IMPL``, ``MONORUN_BAND_TIERED``,
+    ``MONORUN_BAND_MATMUL``, ``MONORUN_BAND_KROI`` and
+    ``MONORUN_BAND_T1_BF16``, with the JAX dispatcher's precedence
+    (``monorun_tpu/ops/roi_align.py:506-572``): ``bandmm`` forces the
+    matmul variant, ``MONORUN_BAND_MATMUL`` applies under ``auto`` only,
+    matmul overrides tiered. Off CUDA every setting gives ``gather``, as
+    the JAX package does off the TPU."""
+    impl = os.environ.get("MONORUN_ALIGN_IMPL", "auto")
+    if impl not in ALIGN_IMPLS:
+        raise ValueError(f"MONORUN_ALIGN_IMPL={impl!r}; expected one of {ALIGN_IMPLS}")
+    if impl == "gather" or not on_cuda:
+        return AlignChoice("gather")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if impl in ("band", "bandmm") or (
+            impl == "auto" and n_rois >= BAND_MIN_ROIS and itemsize < 4):
+        matmul = impl == "bandmm" or (impl != "band" and _env_on("MONORUN_BAND_MATMUL"))
+        kroi = int(os.environ.get("MONORUN_BAND_KROI", "16" if matmul else "4"))
+        if matmul:
+            t1 = torch.bfloat16 if _env_on("MONORUN_BAND_T1_BF16") else None
+            return AlignChoice("bandmm", kroi, t1)
+        if _env_on("MONORUN_BAND_TIERED"):
+            return AlignChoice("tiered", kroi)
+    return AlignChoice("kernel")
+
+
+def prepare_pyramid(features: Sequence[Tensor]):
+    """The dual-orientation flat pyramid (``roi_align_tile.FlatPyramid``)
+    that the staged kernels read, built once per forward and shared by its
+    aligns; None when no align of this process can take a staged kernel
+    (CPU tensors, or the environment selects the direct kernel), so the
+    default path pays nothing."""
+    impl = os.environ.get("MONORUN_ALIGN_IMPL", "auto")
+    staged = impl == "bandmm" or (
+        impl in ("band", "auto") and (
+            _env_on("MONORUN_BAND_TIERED")
+            or (impl == "auto" and _env_on("MONORUN_BAND_MATMUL"))))
+    if not (features[0].is_cuda and staged):
+        return None
+    from .roi_align_tile import prepare_flat_pyramid
+
+    return prepare_flat_pyramid(features)
+
+
 def multilevel_roi_align_auto(
     features: Sequence[Tensor],
     rois: Tensor,
@@ -222,20 +408,35 @@ def multilevel_roi_align_auto(
     out_size: Tuple[int, int],
     finest_scale: float,
     max_ratio: int = 3,
+    tile_h: int = 24,
+    pyramid=None,
 ) -> Tensor:
-    """The serving path's align: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors; same function either way (long-span cap
-    ``LONG_SPAN_CAP``)."""
-    if rois.is_cuda:
+    """The serving path's align, dispatched by ``align_choice``; the same
+    function on every route (long-span cap ``LONG_SPAN_CAP``). ``tile_h``
+    is the staged kernels' tile height, rounded up to 32 rows on the
+    16-row grid as on the TPU; ``pyramid`` is ``prepare_pyramid`` of the
+    same features."""
+    choice = align_choice(rois.shape[0], features[0].dtype, rois.is_cuda)
+    if choice.impl == "gather":
+        return multilevel_roi_align(
+            features, rois, strides, out_size, finest_scale,
+            max_ratio=max_ratio, long_span_cap=LONG_SPAN_CAP,
+        )
+    if choice.impl == "kernel":
         from .roi_align_cuda import roi_align_kernel
 
         return roi_align_kernel(
             [f.contiguous() for f in features], rois.float().contiguous(),
             strides, out_size, finest_scale, max_ratio, LONG_SPAN_CAP,
         )
-    return multilevel_roi_align(
-        features, rois, strides, out_size, finest_scale,
-        max_ratio=max_ratio, long_span_cap=LONG_SPAN_CAP,
+    from .roi_align_band import multilevel_roi_align_band
+
+    tile_h = ((max(tile_h, 32) + 15) // 16) * 16
+    return multilevel_roi_align_band(
+        features, rois, strides, out_size, finest_scale, max_ratio=max_ratio,
+        tile_hw=(tile_h, 96), kroi=choice.kroi, pyramid=pyramid,
+        tiered=choice.impl == "tiered", matmul=choice.impl == "bandmm",
+        t1_dtype=choice.t1_dtype,
     )
 
 

@@ -1,14 +1,22 @@
-"""Build, binding and wrapper of the hand-written CUDA RoIAlign kernel
-(``csrc/roi_align.cu``).
+"""Build, bindings and wrappers of the hand-written CUDA RoIAlign kernels
+(``csrc/*.cu``).
 
-The kernel is compiled with ``nvcc`` at first use into a shared library
-with a plain C interface under ``build/torch_kernels/`` at the repository
-root, named by a hash of its source and flags, and loaded with
+Every source under ``csrc/`` is compiled with ``nvcc`` at first use, one
+process per source, all started together, into shared libraries with a
+plain C interface under ``build/torch_kernels/<hash>/`` at the repository
+root (the hash covers every source, header and flag), and loaded with
 ``ctypes``. A failed build, a refused launch or a bad argument raises;
-there is no fallback to the plain version.
+there is no fallback to a plain version.
 
-``roi_align_kernel.launches`` counts the kernel's launches in this
-process (one per call that launches it).
+Kernels, each with a ``launches`` count (one per call that launches it):
+
+* ``roi_align_kernel`` (``csrc/roi_align.cu``): the direct kernel, port of
+  the band and sorted TPU kernels;
+* ``tile_kernel`` (``csrc/roi_align_tile.cu``): per-RoI tier tiles;
+* ``band_tiered_kernel`` (``csrc/roi_align_band.cu``): tier-uniform band
+  blocks;
+* ``band_packed_kernel`` and ``band_matmul_kernel``
+  (``csrc/roi_align_mma.cu``): row products on tensor cores.
 """
 
 from __future__ import annotations
@@ -20,13 +28,13 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 Tensor = torch.Tensor
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "roi_align.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 MAX_LEVELS = 5
 NVCC_FLAGS = (
@@ -46,41 +54,81 @@ def _nvcc() -> str:
     for c in candidates:
         if c and os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found: the RoIAlign kernel cannot be built")
+    raise RuntimeError("nvcc not found: the RoIAlign kernels cannot be built")
+
+
+class KernelBuild:
+    """The libraries of every source, built together once per process:
+    ``build_all()`` returns them by source stem; ``log`` holds nvcc's and
+    ptxas's output (registers, spills), ``seconds`` the wall time."""
+
+    def __init__(self):
+        self.libs: Optional[Dict[str, ctypes.CDLL]] = None
+        self.log = ""
+        self.seconds: Optional[float] = None
+
+    def __call__(self) -> Dict[str, ctypes.CDLL]:
+        if self.libs is not None:
+            return self.libs
+        t0 = time.perf_counter()
+        sources = sorted(CSRC.glob("*.cu"))
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in sorted(CSRC.iterdir()):
+            digest.update(path.name.encode() + path.read_bytes())
+        out_dir = BUILD_DIR / digest.hexdigest()[:16]
+        out_dir.mkdir(parents=True, exist_ok=True)
+        jobs = []
+        for src in sources:
+            lib = out_dir / f"lib{src.stem}.so"
+            if not lib.exists():
+                tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True)
+                jobs.append((lib, tmp, proc))
+        failed, logs = [], []
+        for lib, tmp, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(f"== {lib.name}\n{out}")
+            if proc.returncode:
+                failed.append(lib.name)
+            else:
+                os.replace(tmp, lib)
+        self.log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{self.log}")
+        self.libs = {s.stem: ctypes.CDLL(str(out_dir / f"lib{s.stem}.so")) for s in sources}
+        self.seconds = time.perf_counter() - t0
+        return self.libs
+
+
+build_all = KernelBuild()
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 class RoIAlignKernel:
-    """Callable wrapper around the compiled kernel, with a launch count."""
+    """Callable wrapper around the direct kernel, with a launch count."""
 
     def __init__(self):
         self.launches = 0
-        self.build_log = ""
-        self.build_seconds: Optional[float] = None
         self._lib = None
 
+    @property
+    def build_log(self) -> str:
+        return build_all.log
+
+    @property
+    def build_seconds(self) -> Optional[float]:
+        return build_all.seconds
+
     def build(self) -> ctypes.CDLL:
-        """Compile (unless a library of this source is built) and load."""
+        """Build every kernel (unless built) and bind this one."""
         if self._lib is not None:
             return self._lib
-        t0 = time.perf_counter()
-        src = _SOURCE.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        lib_path = BUILD_DIR / f"libroi_align_{digest[:16]}.so"
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                capture_output=True, text=True,
-            )
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {_SOURCE}:\n"
-                    f"{self.build_log}"
-                )
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
+        lib = build_all()["roi_align"]
         lib.roi_align_forward.argtypes = [
             ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
@@ -94,7 +142,6 @@ class RoIAlignKernel:
         lib.roi_align_error_string.argtypes = [ctypes.c_int]
         lib.roi_align_error_string.restype = ctypes.c_char_p
         self._lib = lib
-        self.build_seconds = time.perf_counter() - t0
         return lib
 
     def __call__(
@@ -146,7 +193,6 @@ class RoIAlignKernel:
         lib = self.build()
         inv_strides = (ctypes.c_float * levels)(*[1.0 / s for s in strides])
         with torch.cuda.device(f0.device):
-            stream = torch.cuda.current_stream(f0.device).cuda_stream
             rc = lib.roi_align_forward(
                 int(f0.dtype == torch.bfloat16), levels,
                 (ctypes.c_void_p * levels)(*ptrs),
@@ -156,7 +202,7 @@ class RoIAlignKernel:
                 n, B, C, oh, ow, int(max_ratio),
                 float(finest_scale),
                 float(long_span_cap * strides[0]) if long_span_cap else 0.0,
-                stream,
+                _stream(f0.device),
             )
         if rc != 0:
             raise RuntimeError(
@@ -168,3 +214,141 @@ class RoIAlignKernel:
 
 
 roi_align_kernel = RoIAlignKernel()
+
+
+# ---- staged kernels ---------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_BUFS = [_I, ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I), _I]
+
+
+class StagedKernel:
+    """Wrapper of one staged kernel (prepared inputs from
+    ``roi_align_tile.prepare_tile_call`` or
+    ``roi_align_band.prepare_band_call``), with a launch count."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes):
+        self.name = name
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+        self._err = None
+
+    def _bind(self):
+        if self._fn is None:
+            lib = build_all()[self.source]
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{self.source}_error_string")
+            err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+            self._fn, self._err = fn, err
+        return self._fn
+
+    @staticmethod
+    def _buffers(bufs: Sequence[Tensor]):
+        b0 = bufs[0]
+        if b0.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"features must be float32 or bfloat16, not {b0.dtype}")
+        if not b0.is_cuda:
+            raise ValueError("the staged RoIAlign kernels need CUDA tensors")
+        if not 1 <= len(bufs) <= 2 * MAX_LEVELS:
+            raise ValueError(f"need 1..{2 * MAX_LEVELS} level buffers")
+        C = b0.shape[-1]
+        for b in bufs:
+            if (b.dim() != 3 or b.shape[-1] != C or b.dtype != b0.dtype
+                    or b.device != b0.device or not b.is_contiguous() or b.data_ptr() % 16):
+                raise ValueError("level buffers must be contiguous 16-byte aligned "
+                                 "(rows, cols, C) tensors of one dtype, C and device")
+        if (C * b0.element_size()) % 16:
+            raise ValueError(f"channels ({C}) must fill 16-byte rows")
+        k = len(bufs)
+        return [int(b0.dtype == torch.bfloat16), (_P * k)(*[b.data_ptr() for b in bufs]),
+                (_I * k)(*[b.shape[0] for b in bufs]), (_I * k)(*[b.shape[1] for b in bufs]),
+                k]
+
+    @staticmethod
+    def _ints(device, **arrays) -> list:
+        for name, t in arrays.items():
+            if t.dtype != torch.int32 or not t.is_contiguous() or t.device != device:
+                raise ValueError(f"{name} must be a contiguous int32 tensor on {device}")
+        return [t.data_ptr() for t in arrays.values()]
+
+    @staticmethod
+    def _weights(bufs, **arrays) -> list:
+        for name, t in arrays.items():
+            if t.dtype != bufs[0].dtype or not t.is_contiguous() or t.device != bufs[0].device:
+                raise ValueError(f"{name} must be contiguous in the features' dtype and device")
+        return [t.data_ptr() for t in arrays.values()]
+
+    def _launch(self, device, out, args) -> Tensor:
+        fn = self._bind()
+        with torch.cuda.device(device):
+            rc = fn(*args, _stream(device))
+        if rc != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: "
+                               + self._err(rc).decode())
+        self.launches += 1
+        return out
+
+    def __call__(self, call) -> Tensor:
+        bufs = call.bufs if hasattr(call, "bufs") else call.pyramid.bufs
+        head = self._buffers(bufs)
+        dev = bufs[0].device
+        Y, X = (call.Y, call.X) if hasattr(call, "Y") else (call.geo.Y, call.geo.X)
+        oh, ow = Y.shape[1], X.shape[1]
+        if oh != ow:
+            raise ValueError("dual-orientation tiles require square outputs")
+        out = torch.empty((call.n, oh, ow, bufs[0].shape[-1]), dtype=bufs[0].dtype,
+                          device=dev)
+        if call.n == 0:
+            return out
+        C = bufs[0].shape[-1]
+        w = self._weights(bufs, Y=Y, X=X)
+        if self.name == "tile":
+            g = call.geo
+            ints = self._ints(dev, buf_id=g.buf_id, r0=g.r0, c0=g.c0, nrb=g.nrb, ncb=g.ncb,
+                              trans=g.tmask.int().contiguous())
+            args = [*head, *ints, *w, out.data_ptr(), call.n, C, oh, ow, Y.shape[2],
+                    X.shape[2]]
+        else:
+            if call.mode != self.name.removeprefix("band_"):
+                raise ValueError(f"a {call.mode!r} band call cannot run the "
+                                 f"{self.name} kernel")
+            nblk = call.blk_buf.shape[0]
+            if call.mode == "tiered":
+                ints = self._ints(dev, rw0=call.row0, c0=call.col0, dst=call.dst,
+                                  trans=call.trans, blk_buf=call.blk_buf,
+                                  blk_ncb=call.blk_ncb)
+            elif call.mode == "packed":
+                ints = self._ints(dev, rw0=call.row0, c0=call.col0, ncb=call.ncb,
+                                  dst=call.dst, trans=call.trans, blk_buf=call.blk_buf)
+            elif call.mode == "matmul":
+                ints = self._ints(dev, c0rel=call.col0, dst=call.dst, trans=call.trans,
+                                  blk_buf=call.blk_buf, blk_start=call.blk_start,
+                                  blk_po=call.blk_po, blk_act=call.blk_act)
+            args = [*head, *ints, *w, out.data_ptr(), nblk, call.kroi, C, oh, ow]
+            if call.mode == "matmul":
+                args += [call.tw, int(call.t1_dtype is not None)]
+                if call.t1_dtype not in (None, torch.bfloat16):
+                    raise ValueError("t1 is float32 (None) or bfloat16")
+            else:
+                args += [call.th, call.tw]
+        return self._launch(dev, out, args)
+
+
+tile_kernel = StagedKernel("tile", "roi_align_tile", "roi_align_tile_forward",
+                           _BUFS + [_P] * 6 + [_P] * 3 + [_I] * 6 + [_P])
+band_tiered_kernel = StagedKernel("band_tiered", "roi_align_band",
+                                  "roi_align_band_tiered_forward",
+                                  _BUFS + [_P] * 6 + [_P] * 3 + [_I] * 7 + [_P])
+band_packed_kernel = StagedKernel("band_packed", "roi_align_mma",
+                                  "roi_align_band_packed_forward",
+                                  _BUFS + [_P] * 6 + [_P] * 3 + [_I] * 7 + [_P])
+band_matmul_kernel = StagedKernel("band_matmul", "roi_align_mma",
+                                  "roi_align_band_matmul_forward",
+                                  _BUFS + [_P] * 7 + [_P] * 3 + [_I] * 7 + [_P])
+
+STAGED_KERNELS = (tile_kernel, band_tiered_kernel, band_packed_kernel, band_matmul_kernel)

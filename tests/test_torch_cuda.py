@@ -1,4 +1,4 @@
-"""The hand-written CUDA RoIAlign kernel against its plain PyTorch version.
+"""The hand-written CUDA RoIAlign kernels against their plain PyTorch versions.
 
 The tests marked ``cuda`` need a GPU and skip without one. The file imports
 neither JAX nor the JAX package, so on a machine without JAX it runs with
@@ -8,7 +8,11 @@ neither JAX nor the JAX package, so on a machine without JAX it runs with
 Tolerances (both versions accumulate in float32): float32 to 1e-5
 relative, the summation order of the samples; bfloat16 to 2^-7 relative,
 one rounding of the output; both with 5e-5 absolute, a few float32 ulps of
-sums of up to 36 samples of features up to 5 in magnitude.
+sums of up to 36 samples of features up to 5 in magnitude. The staged
+kernels (tile, band tiered, band packed, band matmul) are held to their
+plain version on the same prepared inputs with the same tolerances; with
+the row product rounded to bfloat16 (matmul, ``t1_dtype``) one rounding
+of t1 more, 2^-8 max|x|.
 """
 
 import numpy as np
@@ -16,6 +20,9 @@ import pytest
 import torch
 
 from monorun_tpu_torch.ops import roi_align as ra
+from monorun_tpu_torch.ops import roi_align_band as rb
+from monorun_tpu_torch.ops import roi_align_cuda as rc
+from monorun_tpu_torch.ops import roi_align_tile as rt
 from monorun_tpu_torch.ops.roi_align_cuda import RoIAlignKernel, roi_align_kernel
 
 STRIDES = (4, 4, 8, 16)    # the lazy-lower rule: level 0 stored at stride 4
@@ -111,3 +118,119 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="levels"):
         kernel(feats[:2], rois, *args)
     assert kernel.launches == 0 and kernel._lib is None
+
+
+VARIANTS = {
+    "tile": (rc.tile_kernel, {}),
+    "tiered": (rc.band_tiered_kernel, dict(tiered=True, kroi=4)),
+    "packed": (rc.band_packed_kernel, dict(packed=True, kroi=4)),
+    "matmul": (rc.band_matmul_kernel, dict(matmul=True, kroi=16)),
+    "matmul_t1_bf16": (rc.band_matmul_kernel,
+                       dict(matmul=True, kroi=16, t1_dtype=torch.bfloat16)),
+    # other block sizes (MONORUN_BAND_KROI): the launcher picks a smaller
+    # channel slice where the block's sums outgrow shared memory
+    "tiered_kroi16": (rc.band_tiered_kernel, dict(tiered=True, kroi=16)),
+    "packed_kroi8": (rc.band_packed_kernel, dict(packed=True, kroi=8)),
+    "matmul_kroi4": (rc.band_matmul_kernel, dict(matmul=True, kroi=4)),
+}
+
+
+def _staged(variant, feats, rois, out_size, finest, max_ratio):
+    """(kernel, prepared call, plain version's output) of one variant."""
+    kernel, kw = VARIANTS[variant]
+    if variant == "tile":
+        call = rt.prepare_tile_call(feats, rois, STRIDES, out_size, finest, max_ratio)
+        return kernel, call, rt.tile_call_plain(call)
+    call = rb.prepare_band_call(feats, rois, STRIDES, out_size, finest, max_ratio, **kw)
+    return kernel, call, rb.band_call_plain(call)
+
+
+def _check_staged(kernel, call, ref, feats):
+    before = kernel.launches
+    got = kernel(call)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    rtol = 2 ** -7 if ref.dtype == torch.bfloat16 else 1e-5
+    atol = 1e-5 * max(1.0, float(ref.float().abs().max()))
+    if getattr(call, "t1_dtype", None) is not None:
+        atol += 2 ** -8 * max(float(f.float().abs().max()) for f in feats)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "out_size,finest,max_ratio", [((7, 7), 10.0, 3), ((14, 14), 14.0, 2)],
+)
+def test_staged_kernel_matches_plain(cuda_device, variant, dtype, out_size, finest,
+                                     max_ratio):
+    feats = _pyramid(cuda_device, dtype)
+    rois = _rois(cuda_device)
+    kernel, call, ref = _staged(variant, feats, rois, out_size, finest, max_ratio)
+    _check_staged(kernel, call, ref, feats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_staged_kernel_serving_size(cuda_device, variant, dtype):
+    """A kitti_multiclass-sized pyramid (batch 8, C=256, 384x1280 at strides
+    4, 4, 8, 16) and 2000 RoIs."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    feats = [torch.randn(8, 384 // s, 1280 // s, 256, generator=gen, device=cuda_device)
+             .to(dtype) for s in STRIDES]
+    n = 2000
+    u = torch.rand(n, 4, generator=gen, device=cuda_device)
+    side = 4.0 * 100.0 ** u[:, 0]
+    x1, y1 = u[:, 1] * 1242, u[:, 2] * 375
+    ar = 4.0 ** (2 * u[:, 3] - 1)
+    b = torch.arange(n, device=cuda_device).remainder(8).float()
+    rois = torch.stack([b, x1, y1, (x1 + side * ar.sqrt()).clamp(max=1242),
+                        (y1 + side / ar.sqrt()).clamp(max=375)], 1)
+    kernel, call, ref = _staged(variant, feats, rois, (7, 7), 20.0, 6)
+    _check_staged(kernel, call, ref, feats)
+
+
+@pytest.mark.cuda
+def test_dispatch_launches_the_selected_kernel(cuda_device, monkeypatch):
+    """Under MONORUN_ALIGN_IMPL=band MONORUN_BAND_TIERED=1 the align runs
+    the tiered kernel, under bandmm the matmul kernel, by default the
+    direct kernel; all three agree with the gather version."""
+    feats = _pyramid(cuda_device, torch.float32)
+    rois = _rois(cuda_device)
+    ref = ra.multilevel_roi_align(feats, rois, STRIDES, (7, 7), 10.0, max_ratio=3,
+                                  long_span_cap=ra.LONG_SPAN_CAP)
+    for env, kernel in (({}, roi_align_kernel),
+                        ({"MONORUN_ALIGN_IMPL": "band", "MONORUN_BAND_TIERED": "1"},
+                         rc.band_tiered_kernel),
+                        ({"MONORUN_ALIGN_IMPL": "bandmm"}, rc.band_matmul_kernel)):
+        for name in ("MONORUN_ALIGN_IMPL", "MONORUN_BAND_TIERED"):
+            monkeypatch.delenv(name, raising=False)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        counts = [k.launches for k in (roi_align_kernel, *rc.STAGED_KERNELS)]
+        pyr = ra.prepare_pyramid(feats)
+        assert (pyr is None) == (not env)
+        got = ra.multilevel_roi_align_auto(feats, rois, STRIDES, (7, 7), 10.0, max_ratio=3,
+                                           tile_h=24, pyramid=pyr)
+        torch.cuda.synchronize()
+        after = [k.launches for k in (roi_align_kernel, *rc.STAGED_KERNELS)]
+        assert [a - b for a, b in zip(after, counts)] == [
+            int(k is kernel) for k in (roi_align_kernel, *rc.STAGED_KERNELS)]
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=5e-5)
+
+
+def test_staged_wrapper_refuses_cpu_tensors():
+    """Checks that run before any build or launch."""
+    feats = _pyramid("cpu", torch.float32)
+    rois = _rois("cpu")
+    call = rt.prepare_tile_call(feats, rois, STRIDES, (7, 7), 10.0, 3)
+    kernel = rc.StagedKernel("tile", "roi_align_tile", "roi_align_tile_forward", [])
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(call)
+    band = rb.prepare_band_call(feats, rois, STRIDES, (7, 7), 10.0, 3, kroi=4, tiered=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        rc.band_packed_kernel(band)
+    assert kernel.launches == 0 and kernel._fn is None
