@@ -7,6 +7,11 @@ Run from the repository root:
     python3 chip_smoke.py --profile FILE  # also a torch.profiler breakdown
                                           # of the serving forward; its
                                           # full table goes to FILE
+    python3 chip_smoke.py --ab SOURCE     # also time another build of the
+                                          # direct kernel's C interface
+                                          # (an earlier roi_align.cu) in
+                                          # turns with this one, phases 3-4
+                                          # (repeatable)
 
 Phases, each printing its own lines:
 
@@ -16,14 +21,17 @@ Phases, each printing its own lines:
 3. the direct kernel (``csrc/roi_align.cu``) against its plain PyTorch
    version on a kitti_multiclass-sized pyramid (batch 8, C=256, levels
    96x320, 96x320, 48x160, 24x80, 12x40) at the three main-path shapes,
-   in bfloat16 and float32, with times;
+   in bfloat16 and float32, with times: per call the kernel's ms, its
+   bound and share of the bound, an empty launch's ms in the same timing
+   harness (the fixed cost), samples, sample taps and merged distinct
+   taps per bin;
 4. serving kitti_multiclass at batch 8, full width, seeded random weights,
    through ``init_inference`` -> ``InferenceSession.run`` with the align
    switches unset: output shapes, finiteness, validity masks, exactly 3
    launches of the direct kernel and none of the staged ones per forward,
    no staged pyramid, the three aligns re-run on the forward's own
-   features and RoIs through the kernel and the plain version, ms per
-   batch and frames/s;
+   features and RoIs through the kernel and the plain version (with the
+   times of phase 3), ms per batch and frames/s;
 5. a tiny float32 configuration served on the GPU (kernel) and on the CPU
    (plain version) with the same weights and random draws, compared;
 6. each staged kernel (tile, band tiered, band packed, band matmul, and
@@ -40,7 +48,10 @@ Phases, each printing its own lines:
    the launches of every kernel per forward, ms per batch;
 8. the align micro-bench's A/B (``monorun_tpu_torch.tools.micro_bench``
    ``align48``), the path that reaches the tile and packed kernels;
-9. a ``kernels`` JSON line and, last, the JSON result line.
+9. a ``kernels`` JSON line (the direct kernel's registers and local
+   memory bytes per thread and dtype, as the loaded build reports them,
+   among its keys; local memory, a spill, fails the run) and,
+   last, the JSON result line.
 
 Every path (phases 4, 7 and 8) runs with all launch counts set to 0 just
 before it and read just after; a kernel that its path did not launch fails
@@ -71,6 +82,7 @@ import argparse
 import dataclasses
 import json
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -155,13 +167,33 @@ def align_work(feats, rois, strides, out_size, finest, max_ratio):
     return nbytes, 2 * 4 * C * samples
 
 
-def compare_align(label, feats, rois, strides, out_size, finest, max_ratio, flush,
-                  timed=True):
+def tap_counts(feats, rois, strides, out_size, finest, max_ratio):
+    """Per output bin, averaged over the call: computed samples, their
+    taps (4 each, as the unmerged version loads them) and the distinct
+    taps the direct kernel loads after merging (``merged_bin_taps``)."""
+    sizes = [(f.shape[1], f.shape[2]) for f in feats]
+    samples = distinct = 0
+    for start in range(0, rois.shape[0], 1024):
+        r = rois[start:start + 1024].float()
+        _, w, avg = ra.sample_taps(sizes, r, strides, out_size, finest, max_ratio,
+                                   ra.LONG_SPAN_CAP)
+        samples += int(((w.sum(0) > 0) & (avg > 0)).sum())
+        t = ra.merged_bin_taps(sizes, r, strides, out_size, finest, max_ratio,
+                               ra.LONG_SPAN_CAP)
+        n_rows, n_cols = (t.row_w != 0).sum(-1), (t.col_w != 0).sum(-1)
+        distinct += int((n_rows[:, :, None] * n_cols[:, None, :]).sum())
+    bins = rois.shape[0] * out_size[0] * out_size[1]
+    return dict(samples_per_bin=samples / bins, sample_taps_per_bin=4 * samples / bins,
+                distinct_taps_per_bin=distinct / bins)
+
+
+def compare_align(label, feats, rois, strides, out_size, finest, max_ratio, flush, ab=()):
     """Kernel against plain version on one call; prints one line and
-    returns its record."""
-    def kernel():
-        return roi_align_kernel(feats, rois, strides, out_size, finest, max_ratio,
-                                ra.LONG_SPAN_CAP)
+    returns its record. ``ab``: other builds of the kernel, each timed in
+    turns with this one (other, kernel, kernel, other), its agreement with
+    the plain version reported (a diagnostic build may skip work)."""
+    def kernel(k=roi_align_kernel):
+        return k(feats, rois, strides, out_size, finest, max_ratio, ra.LONG_SPAN_CAP)
 
     def plain():
         return ra.multilevel_roi_align(feats, rois, strides, out_size, finest,
@@ -173,15 +205,26 @@ def compare_align(label, feats, rois, strides, out_size, finest, max_ratio, flus
     rec = dict(call=label, dtype=str(feats[0].dtype).replace("torch.", ""),
                rois=int(rois.shape[0]), out=list(out_size), max_ratio=max_ratio,
                max_abs_err=err, max_abs_ref=float(ref.float().abs().max()))
-    if timed:
-        nbytes, flops = align_work(feats, rois, strides, out_size, finest, max_ratio)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS * 1e3
-        rec.update(
-            ms=device_ms(kernel, 15, flush), plain_ms=device_ms(plain, 10, flush),
-            bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-        )
+    nbytes, flops = align_work(feats, rois, strides, out_size, finest, max_ratio)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    rec.update(
+        ms=device_ms(kernel, 15, flush), plain_ms=device_ms(plain, 10, flush),
+        empty_ms=device_ms(roi_align_kernel.empty_launch, 15, flush),
+        bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        **tap_counts(feats, rois, strides, out_size, finest, max_ratio),
+    )
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    rec["ab"] = []
+    for other in ab:
+        ab_err, ab_ok = max_err(kernel(other), ref)
+        turns = [device_ms(lambda: kernel(k), 15, flush)
+                 for k in (other, roi_align_kernel, roi_align_kernel, other)]
+        rec["ab"].append(dict(source=str(other.source), max_abs_err=ab_err,
+                              agrees=ab_ok, ms_turns=turns,
+                              ms=statistics.median([turns[0], turns[3]]),
+                              this_ms=statistics.median(turns[1:3])))
     print("align " + json.dumps(rec), flush=True)
     check(ok, f"kernel and plain version disagree on {label} ({rec['dtype']}): "
               f"max abs error {err}")
@@ -212,7 +255,7 @@ def synthetic_rois(n_per_img, batch, img_hw, min_side, max_side, gen, dev):
     return rois
 
 
-def phase_kernel(cfg, flush, dev):
+def phase_kernel(cfg, flush, dev, ab=()):
     gen = torch.Generator(device=dev).manual_seed(0)
     H, W = cfg.data.pad_height, cfg.data.pad_width
     strides = ra.align_strides(cfg.neck.lazy_lower, cfg.bbox_head.featmap_strides)
@@ -231,7 +274,7 @@ def phase_kernel(cfg, flush, dev):
         feats = [f.to(dtype) for f in feats32]
         for label, rois, out_size, finest, mr in calls:
             recs.append(compare_align(f"synthetic {label}", feats, rois, strides, out_size,
-                                      finest, mr, flush, timed=dtype == torch.bfloat16))
+                                      finest, mr, flush, ab=ab))
         del feats
     return recs
 
@@ -311,7 +354,7 @@ def check_launches(counts: dict, per_forward: dict, forwards: int, what: str) ->
                           f"expected {want}")
 
 
-def phase_serve(cfg, flush, dev, card, profile):
+def phase_serve(cfg, flush, dev, card, profile, ab=()):
     sess = init_inference("kitti_multiclass", batch_size=BATCH, device="cuda", seed=0)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -354,7 +397,7 @@ def phase_serve(cfg, flush, dev, card, profile):
             check(ok, f"the forward's {label} align disagrees with the plain version")
             recs.append(compare_align(f"forward {label}", feats, rois, strides, out_size,
                                       head_cfg.finest_scale, head_cfg.align_max_ratio,
-                                      flush))
+                                      flush, ab=ab))
             calls.append((label, feats, rois, strides, out_size, head_cfg.finest_scale,
                           head_cfg.align_max_ratio, recs[-1]))
     del recorded
@@ -645,16 +688,29 @@ def kernel_record(name, launches, recs):
         bound_ms=sum(r["bound_ms"] for r in timed),
         bound_by=max(timed, key=lambda r: r["bound_ms"])["bound_by"],
         library_ms=None,
-        calls=[{k: r.get(k) for k in ("call", "variant", "dtype", "rois", "out", "ms",
-                                      "call_ms", "plain_ms", "bound_ms", "bound_by",
-                                      "max_abs_err")} for r in recs],
+        calls=[{k: r[k] for k in ("call", "variant", "dtype", "rois", "out", "ms", "call_ms",
+                                  "plain_ms", "empty_ms", "bound_ms", "bound_by",
+                                  "bound_share", "distinct_taps_per_bin", "max_abs_err")
+                if k in r} for r in recs],
     )
+
+
+def clocks_line() -> str:
+    """The card's SM and memory clocks (now and maximum), temperature and
+    power draw, as nvidia-smi gives them: times move with them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,clocks.max.mem,"
+         "temperature.gpu,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="FILE",
                     help="profile the serving forward; write the table to FILE")
+    ap.add_argument("--ab", type=Path, metavar="SOURCE", action="append", default=[],
+                    help="also time SOURCE, a build of the direct kernel's C interface, "
+                         "in turns with csrc/roi_align.cu in phases 3-4 (repeatable)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL no CUDA device is available", file=sys.stderr)
@@ -663,6 +719,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     print(f"card {card}", flush=True)
+    print(f"clocks {clocks_line()}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     try:
@@ -672,13 +729,23 @@ def main() -> int:
         for line in rc.build_all.log.splitlines():
             if line.startswith("==") or "registers" in line or "spill" in line:
                 print(f"build {line.strip()}", flush=True)
+        attributes = roi_align_kernel.attributes()
+        print("build direct kernel " + json.dumps(attributes), flush=True)
+        check(all(a["local_bytes"] == 0 for a in attributes.values()),
+              f"the direct kernel uses local memory (spills or stack): {attributes}")
+        ab = [rc.RoIAlignKernel(source=src) for src in args.ab]
+        for other in ab:
+            other.build()
+            for line in other.build_log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"build ab {other.source.name} {line.strip()}", flush=True)
 
         cfg = get_config("kitti_multiclass")
         flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
         with align_env({}):
-            synthetic = phase_kernel(cfg, flush, dev)
+            synthetic = phase_kernel(cfg, flush, dev, ab)
         forward, default_counts, sess, requests, calls = phase_serve(cfg, flush, dev, card,
-                                                                     args.profile)
+                                                                     args.profile, ab)
         with align_env({}):
             phase_tiny()
         staged = phase_staged(calls, flush)
@@ -691,6 +758,7 @@ def main() -> int:
 
     direct = kernel_record("roi_align", default_counts["roi_align"], forward)
     direct["max_abs_err"] = max(r["max_abs_err"] for r in synthetic + forward)
+    direct["attributes"] = attributes
     launches = {"roi_align_tile": micro["roi_align_tile"],
                 "roi_align_band_tiered": paths["band tiered"]["roi_align_band_tiered"],
                 "roi_align_band_packed": micro["roi_align_band_packed"],
@@ -699,6 +767,7 @@ def main() -> int:
         kernel_record(name, n, [r for r in staged if r["kernel"] == name
                                 and r["variant"] != "matmul t1 bf16"])
         for name, n in launches.items()]
+    print(f"clocks {clocks_line()}", flush=True)
     print(f"seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -223,6 +223,99 @@ def multilevel_roi_align(
     return out
 
 
+class BinTaps(NamedTuple):
+    """The merged taps of every output bin (``merged_bin_taps``). A bin
+    (i, j) of RoI n is ``sum_a sum_b (row_w[n, i, a] * col_w[n, j, b]) *
+    F[base[n] + rows[n, i, a] * width[n] + cols[n, j, b]]`` on the
+    flattened pyramid; entries that are not on a list have weight 0."""
+
+    base: Tensor    # (m,) flat row of the RoI's image and level
+    width: Tensor   # (m,) its level's width
+    rows: Tensor    # (m, oh, 2 * max_ratio) tap rows, near and far per sample
+    row_w: Tensor   # (m, oh, 2 * max_ratio) merged weights, times 1/(gh*gw)
+    cols: Tensor    # (m, ow, 2 * max_ratio)
+    col_w: Tensor   # (m, ow, 2 * max_ratio)
+
+
+def _merge_axis(coords: Tensor, count: Tensor, size: Tensor) -> Tuple[Tensor, Tensor]:
+    """One axis of ``merged_bin_taps``: coords (m, o, R) sample positions,
+    count (m,) samples in use, size (m,) the level's extent. Returns the
+    taps (m, o, 2R) in order (near, far of sample 0, near, far of sample
+    1, ...) and their merged weights."""
+    R = coords.shape[-1]
+    k = torch.arange(R, device=coords.device)
+    live = k < count[:, None, None]
+    sizef = size.float()[:, None, None]
+    valid = live & (coords >= -1.0) & (coords <= sizef)
+    c = torch.minimum(coords.clamp(min=0.0), sizef - 1.0)
+    f = torch.floor(c)
+    lo = c - f
+    t0 = f.long()
+    t1 = torch.minimum(t0 + 1, size.long()[:, None, None] - 1)
+    zero = torch.zeros_like(lo)
+    taps = torch.stack([t0, t1], -1).flatten(-2)
+    w = torch.stack([torch.where(valid, 1.0 - lo, zero),
+                     torch.where(valid, lo, zero)], -1).flatten(-2)
+    live2 = live.repeat_interleave(2, -1)
+    # a far tap clamped onto its near tap merges into it
+    owner = live2 & torch.cat([torch.ones_like(t0, dtype=torch.bool)[..., None],
+                               (t1 != t0)[..., None]], -1).flatten(-2)
+    later = torch.arange(2 * R, device=coords.device)
+    sums = torch.zeros_like(w)
+    for t in range(2 * R):
+        match = (taps == taps[..., t:t + 1]) & live2[..., t:t + 1]
+        sums = sums + torch.where(match, w[..., t:t + 1], 0.0)
+        owner = owner & ~(match & (later > t))
+    owner = owner & (sums != 0)
+    return taps, torch.where(owner, sums, 0.0)
+
+
+def merged_bin_taps(
+    sizes: Sequence[Tuple[int, int]],   # per level (H_l, W_l)
+    rois: Tensor,                       # (m, 5) float32
+    strides: Sequence[int],
+    out_size: Tuple[int, int],
+    finest_scale: float,
+    max_ratio: int,
+    long_span_cap: float | None = None,
+) -> BinTaps:
+    """Each bin's tap rows and columns merged the way ``csrc/roi_align.cu``
+    merges them (the plain statement of its rule, for tests): the bilinear
+    weight of a sample factorises into a row and a column weight (validity
+    included), so every tap of an axis is summed into the first tap, in
+    the order (near, far) of sample 0, 1, ..., that lies on the same row or
+    column; the others, and taps whose sum is zero, drop out. The
+    1/(gh*gw) average multiplies the row weights."""
+    dev = rois.device
+    oh, ow = out_size
+    offsets, total = [], 0
+    for h, w in sizes:
+        offsets.append(total)
+        total += h * w
+    stride_arr = torch.tensor([float(s) for s in strides], device=dev)
+    h_arr = torch.tensor([h for h, _ in sizes], device=dev)
+    w_arr = torch.tensor([w for _, w in sizes], device=dev)
+    lvls = assign_fpn_levels(rois, len(sizes), finest_scale, long_span_cap,
+                             float(strides[0]))
+    x1, y1, x2, y2 = (rois[:, 1:5] * (1.0 / stride_arr[lvls])[:, None] - 0.5).unbind(1)
+    roi_w, roi_h = x2 - x1, y2 - y1
+    bin_w, bin_h = _div(roi_w, ow), _div(roi_h, oh)
+    gw = torch.ceil(bin_w).clamp(1, max_ratio).int()
+    gh = torch.ceil(bin_h).clamp(1, max_ratio).int()
+    k = torch.arange(max_ratio, device=dev, dtype=torch.float32)
+
+    def coords(start, binsz, g, o):
+        idx = torch.arange(o, device=dev, dtype=torch.float32)
+        return (start[:, None, None] + idx[None, :, None] * binsz[:, None, None]
+                + (k[None, None, :] + 0.5) * binsz[:, None, None] / g.float()[:, None, None])
+
+    rows, row_w = _merge_axis(coords(y1, bin_h, gh, oh), gh, h_arr[lvls])
+    cols, col_w = _merge_axis(coords(x1, bin_w, gw, ow), gw, w_arr[lvls])
+    avg = 1.0 / (gh * gw).float()
+    base = rois[:, 0].long() * total + torch.tensor(offsets, device=dev)[lvls]
+    return BinTaps(base, w_arr[lvls], rows, row_w * avg[:, None, None], cols, col_w)
+
+
 def axis_interp_matrix(
     coords: Tensor,       # (n, o, k) sample positions along one axis
     kmask: Tensor,        # (n, 1, k) which of the k sub-samples exist

@@ -11,7 +11,8 @@ there is no fallback to a plain version.
 Kernels, each with a ``launches`` count (one per call that launches it):
 
 * ``roi_align_kernel`` (``csrc/roi_align.cu``): the direct kernel, port of
-  the band and sorted TPU kernels;
+  the band and sorted TPU kernels (``RoIAlignKernel(source=...)`` binds
+  another build of the same C interface, for an A/B on the card);
 * ``tile_kernel`` (``csrc/roi_align_tile.cu``): per-RoI tier tiles;
 * ``band_tiered_kernel`` (``csrc/roi_align_band.cu``): tier-uniform band
   blocks;
@@ -37,10 +38,12 @@ Tensor = torch.Tensor
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 MAX_LEVELS = 5
+MAX_RATIO = 16       # the direct kernel's samples per axis: one lane each
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no fused multiply-add contraction: the sample coordinates and
     # weights round exactly as the plain version's separate tensor ops do
+    # (the direct kernel's channel sums call __fmaf_rn explicitly)
     "-fmad=false",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
@@ -55,6 +58,43 @@ def _nvcc() -> str:
         if c and os.path.exists(c):
             return c
     raise RuntimeError("nvcc not found: the RoIAlign kernels cannot be built")
+
+
+def _start_nvcc(src: Path, lib: Path):
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return lib, tmp, proc
+
+
+def _finish_nvcc(jobs) -> Tuple[str, list]:
+    """Waits for every (lib, tmp, process); returns the joined log and the
+    libraries that failed."""
+    failed, logs = [], []
+    for lib, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"== {lib.name}\n{out}")
+        if proc.returncode:
+            failed.append(lib.name)
+        else:
+            os.replace(tmp, lib)
+    return "\n".join(logs), failed
+
+
+def build_source(src: Path) -> Tuple[ctypes.CDLL, str]:
+    """One source built alone with the same flags (into a directory named
+    by its content's hash), and nvcc's log."""
+    src = Path(src)
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
+    out_dir = BUILD_DIR / f"one-{digest.hexdigest()[:16]}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"lib{src.stem}.so"
+    log = ""
+    if not lib.exists():
+        log, failed = _finish_nvcc([_start_nvcc(src, lib)])
+        if failed:
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+    return ctypes.CDLL(str(lib)), log
 
 
 class KernelBuild:
@@ -77,26 +117,12 @@ class KernelBuild:
             digest.update(path.name.encode() + path.read_bytes())
         out_dir = BUILD_DIR / digest.hexdigest()[:16]
         out_dir.mkdir(parents=True, exist_ok=True)
-        jobs = []
-        for src in sources:
-            lib = out_dir / f"lib{src.stem}.so"
-            if not lib.exists():
-                tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-                proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True)
-                jobs.append((lib, tmp, proc))
-        failed, logs = [], []
-        for lib, tmp, proc in jobs:
-            out, _ = proc.communicate()
-            logs.append(f"== {lib.name}\n{out}")
-            if proc.returncode:
-                failed.append(lib.name)
-            else:
-                os.replace(tmp, lib)
-        self.log = "\n".join(logs)
+        jobs = [_start_nvcc(src, out_dir / f"lib{src.stem}.so") for src in sources
+                if not (out_dir / f"lib{src.stem}.so").exists()]
+        log, failed = _finish_nvcc(jobs)
         if failed:
-            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{self.log}")
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        self.log = log
         self.libs = {s.stem: ctypes.CDLL(str(out_dir / f"lib{s.stem}.so")) for s in sources}
         self.seconds = time.perf_counter() - t0
         return self.libs
@@ -110,25 +136,25 @@ def _stream(device: torch.device) -> int:
 
 
 class RoIAlignKernel:
-    """Callable wrapper around the direct kernel, with a launch count."""
+    """Callable wrapper around the direct kernel, with a launch count;
+    ``source`` builds another file of the same C interface instead (an
+    earlier version of ``csrc/roi_align.cu``, for an A/B)."""
 
-    def __init__(self):
+    def __init__(self, source: Optional[Path] = None):
         self.launches = 0
+        self.source = source
+        self.build_log = ""
         self._lib = None
-
-    @property
-    def build_log(self) -> str:
-        return build_all.log
-
-    @property
-    def build_seconds(self) -> Optional[float]:
-        return build_all.seconds
 
     def build(self) -> ctypes.CDLL:
         """Build every kernel (unless built) and bind this one."""
         if self._lib is not None:
             return self._lib
-        lib = build_all()["roi_align"]
+        if self.source is None:
+            lib = build_all()["roi_align"]
+            self.build_log = build_all.log
+        else:
+            lib, self.build_log = build_source(self.source)
         lib.roi_align_forward.argtypes = [
             ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
@@ -143,6 +169,36 @@ class RoIAlignKernel:
         lib.roi_align_error_string.restype = ctypes.c_char_p
         self._lib = lib
         return lib
+
+    def empty_launch(self, device=None) -> None:
+        """One launch of an empty kernel on the current stream (not
+        counted): the fixed cost of a launch, for timing beside a call."""
+        lib = self.build()
+        lib.roi_align_empty.argtypes = [ctypes.c_void_p]
+        lib.roi_align_empty.restype = ctypes.c_int
+        dev = torch.device("cuda") if device is None else device
+        with torch.cuda.device(dev):
+            rc = lib.roi_align_empty(_stream(dev))
+        if rc != 0:
+            raise RuntimeError("empty launch failed: "
+                               + lib.roi_align_error_string(rc).decode())
+
+    def attributes(self) -> Dict[str, Dict[str, int]]:
+        """Registers and local memory bytes (spills and stack) per thread of
+        the forward kernel in each dtype, from the loaded build."""
+        lib = self.build()
+        lib.roi_align_attributes.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                             ctypes.POINTER(ctypes.c_int)]
+        lib.roi_align_attributes.restype = ctypes.c_int
+        usage = {}
+        for name, is_bf16 in (("bfloat16", 1), ("float32", 0)):
+            regs, local = ctypes.c_int(), ctypes.c_int()
+            rc = lib.roi_align_attributes(is_bf16, ctypes.byref(regs), ctypes.byref(local))
+            if rc != 0:
+                raise RuntimeError("kernel attributes query failed: "
+                                   + lib.roi_align_error_string(rc).decode())
+            usage[name] = dict(registers=regs.value, local_bytes=local.value)
+        return usage
 
     def __call__(
         self,
@@ -159,6 +215,8 @@ class RoIAlignKernel:
         f0 = features[0]
         if not 1 <= levels <= MAX_LEVELS or len(strides) != levels:
             raise ValueError(f"need 1..{MAX_LEVELS} levels with one stride each")
+        if not 1 <= max_ratio <= MAX_RATIO:
+            raise ValueError(f"max_ratio must be 1..{MAX_RATIO}, not {max_ratio}")
         if f0.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"features must be float32 or bfloat16, not {f0.dtype}")
         if not f0.is_cuda:
@@ -179,6 +237,8 @@ class RoIAlignKernel:
                     "each level needs unit channel stride, 16-byte alignment "
                     "and strides that are multiples of 16 bytes"
                 )
+            if ((f.shape[1] - 1) * sh + (f.shape[2] - 1) * sw + C) * f.element_size() >= 2 ** 31:
+                raise ValueError("a level's image must span fewer than 2^31 bytes")
             ptrs.append(f.data_ptr())
             dims += [f.shape[1], f.shape[2], sb, sh, sw]
         if (rois.dim() != 2 or rois.shape[1] != 5 or rois.dtype != torch.float32

@@ -23,7 +23,8 @@ preset's align settings (finest scale 20 / 28, sampling cap 6 / 4).
   modules at 100 detections per image, seeded random weights.
 
 Timing: CUDA events around one call, median of ``REPS`` calls, each after
-an L2 flush (a 256 MB write), after one warm-up call. Prints the card's
+an L2 flush (a 256 MB write) and a spin on the card that outlasts the
+host's launch of the call, after one warm-up call. Prints the card's
 name and power limit, then one line per op and implementation, and one
 JSON line of all records.
 """
@@ -50,6 +51,9 @@ from ..ops.roi_align_tile import multilevel_roi_align_tile, prepare_flat_pyramid
 OPS = ("pyramid", "align7k", "align7", "align14", "align48", "global", "noc", "carafe",
        "pnp", "proposals")
 REPS = 15
+# card clock cycles of the spin before each timed call: about 0.5 ms at the
+# H100's 1.98 GHz, longer than the host takes to enqueue one wrapper call
+SPIN_CYCLES = 1_000_000
 ENV_NAMES = ("MONORUN_ALIGN_IMPL", "MONORUN_BAND_TIERED", "MONORUN_BAND_MATMUL",
              "MONORUN_BAND_KROI", "MONORUN_BAND_T1_BF16")
 # align48 implementations set through the environment
@@ -66,11 +70,15 @@ AB_IMPLS = tuple(ALIGN_ENV) + ("packed", "tile")
 
 def device_ms(fn: Callable, reps: int, flush: torch.Tensor) -> float:
     """Median device time of ``fn`` over ``reps`` runs, each after an L2
-    flush (a write larger than the 50 MB cache), by CUDA events."""
+    flush (a write larger than the 50 MB cache), by CUDA events. The card
+    spins between the flush and the start event, so ``fn``'s kernels are
+    queued before the start event fires and the host's time in ``fn``
+    stays outside the measurement while it is shorter than the spin."""
     fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()

@@ -120,6 +120,120 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     assert kernel.launches == 0 and kernel._lib is None
 
 
+# the merge rule's edge cases (test_torch_roi_align_merge.py) on a wide
+# lazy pyramid: 150-cell slivers at level 1 (samples more than a cell
+# apart), samples outside [-1, size], far taps clamped on the last row and
+# column, zero-size slots
+EDGE_HW = (64, 640)
+EDGE = np.array(
+    [
+        [0, 0.0, 0.0, 0.0, 0.0],
+        [1, 0.0, 0.0, 0.0, 0.0],
+        [0, 10.0, 30.0, 610.0, 31.0],
+        [1, 20.0, 50.0, 630.0, 52.0],
+        [0, -40.0, -30.0, 60.0, 20.0],
+        [1, 560.0, 40.0, 720.0, 90.0],
+        [0, 600.0, 48.0, 640.0, 64.0],
+        [1, 636.0, 61.0, 640.0, 64.0],
+        [0, 5.0, 5.0, 6.5, 6.0],
+        [1, 100.0, 0.0, 400.0, 64.0],
+    ],
+    np.float32,
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_size,finest,max_ratio", [((7, 7), 10.0, 6), ((14, 14), 14.0, 4)])
+def test_kernel_edge_cases_match_plain(cuda_device, dtype, out_size, finest, max_ratio):
+    H, W = EDGE_HW
+    feats = _pyramid(cuda_device, dtype, H=H, W=W, seed=1)
+    rng = np.random.default_rng(1)
+    x1, y1 = rng.uniform(0, W - 4, 40), rng.uniform(0, H - 4, 40)
+    rand = np.stack([rng.integers(0, 2, 40), x1, y1, np.clip(x1 + rng.uniform(1, 300, 40), None, W),
+                     np.clip(y1 + rng.uniform(1, 60, 40), None, H)], 1).astype(np.float32)
+    rois = torch.from_numpy(np.concatenate([rand, EDGE])).to(cuda_device)
+    before = roi_align_kernel.launches
+    got = roi_align_kernel(feats, rois, STRIDES, out_size, finest, max_ratio, ra.LONG_SPAN_CAP)
+    roi_align_kernel.empty_launch()
+    torch.cuda.synchronize()
+    assert roi_align_kernel.launches == before + 1
+    ref = ra.multilevel_roi_align(feats, rois, STRIDES, out_size, finest,
+                                  max_ratio=max_ratio, long_span_cap=ra.LONG_SPAN_CAP)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "out_size,max_ratio,C,n",
+    [
+        ((2, 3), 2, 16, 40),      # 4 warps, idle half warps in the list build
+        ((5, 9), 16, 48, 40),     # the half-warp sample cap, odd sizes
+        ((28, 28), 3, 32, 40),    # 56 lists: 16 warps build them in two passes
+        ((7, 7), 6, 512, 1500),   # two vectors per lane, one block per RoI
+    ],
+)
+def test_kernel_launch_shapes_match_plain(cuda_device, dtype, out_size, max_ratio, C, n):
+    """Warps per block, the bin split and the channel loop away from the
+    serving shapes."""
+    feats = _pyramid(cuda_device, dtype, C=C, seed=2)
+    rois = _rois(cuda_device, n=n, seed=2)
+    got = roi_align_kernel(feats, rois, STRIDES, out_size, 10.0, max_ratio, ra.LONG_SPAN_CAP)
+    ref = ra.multilevel_roi_align(feats, rois, STRIDES, out_size, 10.0,
+                                  max_ratio=max_ratio, long_span_cap=ra.LONG_SPAN_CAP)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=5e-5)
+
+
+def test_wrapper_refuses_sample_caps_beyond_a_half_warp():
+    """The direct kernel computes one sample per lane of a half warp."""
+    kernel = RoIAlignKernel()
+    feats = _pyramid("cpu", torch.float32)
+    for max_ratio in (0, rc.MAX_RATIO + 1):
+        with pytest.raises(ValueError, match="max_ratio"):
+            kernel(feats, _rois("cpu"), STRIDES, (7, 7), 10.0, max_ratio, ra.LONG_SPAN_CAP)
+    assert kernel.launches == 0 and kernel._lib is None
+
+
+@pytest.mark.cuda
+def test_kernel_keeps_every_value_in_registers(cuda_device):
+    """No spill and no stack in either dtype, within the 64 registers that
+    let 32 warps share an SM, as the loaded build reports."""
+    attributes = roi_align_kernel.attributes()
+    assert set(attributes) == {"bfloat16", "float32"}
+    for a in attributes.values():
+        assert a["local_bytes"] == 0 and 0 < a["registers"] <= 64
+
+
+SASS = """
+        Function : _ZN12_GLOBAL__N_124roi_align_forward_kernelI13__nv_bfloat16EEvNS_7PyramidENS_6ParamsE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                  /* 0x00000a00ff017b82 */
+        /*0010*/                   LDG.E.128.CONSTANT R4, desc[UR10][R2.64] ;   /* 0x000000 */
+        /*0020*/                   FFMA R8, R9, R4, R8 ;                   /* 0x000000 */
+        /*0030*/                   IADD3 R2, R2, 0x1, RZ ;                 /* 0x000000 */
+        /*0040*/              @!P0 BRA 0x10 ;                              /* 0x000000 */
+        /*0050*/                   STG.E.EF.128 desc[UR10][R16.64], R12 ;  /* 0x000000 */
+        /*0060*/              @!P1 BRA 0x0 ;                               /* 0x000000 */
+        /*0070*/                   EXIT ;                                  /* 0x000000 */
+        Function : _ZN12_GLOBAL__N_112empty_kernelEv
+        /*0000*/                   EXIT ;                                  /* 0x000000 */
+"""
+
+
+def test_sass_loops_counts_the_loops_that_load():
+    from monorun_tpu_torch.tools import sass_loops
+
+    kernels = sass_loops.parse(SASS.splitlines())
+    assert [len(v) for v in kernels.values()] == [8, 1]
+    name = next(iter(kernels))
+    assert sass_loops.load_loops(kernels[name]) == [
+        dict(instructions=4, loads=1, ffma=1, start="10"),
+        dict(instructions=7, loads=1, ffma=1, start="0"),
+    ]
+
+
 VARIANTS = {
     "tile": (rc.tile_kernel, {}),
     "tiered": (rc.band_tiered_kernel, dict(tiered=True, kroi=4)),
