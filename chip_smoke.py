@@ -12,6 +12,10 @@ Run from the repository root:
                                           # (an earlier roi_align.cu) in
                                           # turns with this one, phases 3-4
                                           # (repeatable)
+    python3 chip_smoke.py --ab NAME=SOURCE
+                                          # the same for the staged kernel
+                                          # NAME of the kernels line (e.g.
+                                          # roi_align_band_matmul), phase 6
 
 Phases, each printing its own lines:
 
@@ -38,7 +42,10 @@ Phases, each printing its own lines:
    matmul with its row product in bfloat16) against its plain version on
    the same prepared inputs: the forward's own three aligns, in bfloat16
    and float32, with the kernel's time, the time of the call with its
-   preparation, the plain version's time and the bound; in bfloat16 also
+   preparation, the plain version's time, the bound and its bytes, the
+   bytes the kernel stages (counted from the prepared call) and, for the
+   staged core's kernels (tiered, matmul), the launch shape; with
+   ``--ab NAME=SOURCE`` the other build's time in turns; in bfloat16 also
    its gap to the gather version (float32 weights) on the RoIs whose taps
    fit the staged window (lazy-level slivers overrun it, as in the JAX
    package's kernels; their count and gap are printed);
@@ -48,10 +55,10 @@ Phases, each printing its own lines:
    the launches of every kernel per forward, ms per batch;
 8. the align micro-bench's A/B (``monorun_tpu_torch.tools.micro_bench``
    ``align48``), the path that reaches the tile and packed kernels;
-9. a ``kernels`` JSON line (the direct kernel's registers and local
-   memory bytes per thread and dtype, as the loaded build reports them,
-   among its keys; local memory, a spill, fails the run) and,
-   last, the JSON result line.
+9. a ``kernels`` JSON line (the registers and local memory bytes per
+   thread and dtype of the direct kernel and of the staged core's kernels,
+   as the loaded build reports them, among their keys; local memory, a
+   spill, fails the run) and, last, the JSON result line.
 
 Every path (phases 4, 7 and 8) runs with all launch counts set to 0 just
 before it and read just after; a kernel that its path did not launch fails
@@ -431,9 +438,77 @@ def staged_ok(got, ref, feats, t1_rounded):
     return float(d.max()), bool(torch.isfinite(got).all()) and bool((d <= bound).all())
 
 
-def phase_staged(calls, flush):
+CORE_KERNELS = (rc.band_tiered_kernel, rc.band_matmul_kernel)
+
+
+def staged_bytes_host(kernel, call) -> int:
+    """Bytes of the feature buffers the kernel copies into shared memory in
+    one call, counted on the host from the prepared call (not measured):
+    tile, each RoI's tier tile; packed, each real RoI's rows by its group's
+    widest tier; the staged core (tiered, matmul), as its launcher and
+    kernel choose them: for each block of A rows with a real slot, K rows
+    (matmul 64, tiered the union rounded up to 16) by the ring chunks of
+    ``stage_cols`` columns from the union's first column that some slot's
+    window touches, cut at the buffer's edge, once per block of output
+    columns. All channels."""
+    bufs = call_buffers(call)
+    C, item = bufs[0].shape[-1], bufs[0].element_size()
+    if kernel is rc.tile_kernel:
+        g = call.geo
+        return int((g.nrb.long() * rt.ROW_BLK * g.ncb.long() * rt.COL_BLK).sum()) * C * item
+    kroi, oh = call.kroi, call.Y.shape[1]
+    real = (call.dst >= 0).view(-1, kroi)
+    if kernel is rc.band_packed_kernel:
+        tier = call.ncb.long().view(-1, rb.KPACK).amax(1, keepdim=True)
+        cells = call.th * rt.COL_BLK * tier.expand(-1, rb.KPACK).reshape(-1, kroi)
+        return int(cells[real].sum()) * C * item
+    shape = kernel.launch_shape(call.Y.dtype, kroi, oh, call.tw)
+    ch, dev = shape["stage_cols"], real.device
+    matmul = kernel is rc.band_matmul_kernel
+    blk_buf = call.blk_buf.long()
+    bcols = torch.tensor([b.shape[1] for b in bufs], device=dev)[blk_buf][:, None]
+    brows = torch.tensor([b.shape[0] for b in bufs], device=dev)[blk_buf]
+    c0 = call.col0.long().view(-1, kroi)
+    if matmul:
+        c0 = c0 + call.blk_po.long()[:, None]
+        width = torch.full_like(c0, call.tw)
+    else:
+        width = (call.blk_ncb.long() * rt.COL_BLK)[:, None].expand_as(c0)
+    rw0 = call.row0.long().view(-1, kroi)
+    g = torch.arange(kroi, device=dev)
+    rows_per, big, total = shape["m_tiles"] * 16, 1 << 30, 0
+    for mg in range(shape["m_groups"]):
+        m = real & (g * oh < (mg + 1) * rows_per) & ((g + 1) * oh > mg * rows_per)
+        if not bool(m.any()):
+            continue
+        cmin = torch.where(m, c0, big).amin(1, keepdim=True)
+        q_lo = torch.where(m, (c0 - cmin) // ch, 0)
+        q_hi = torch.where(m, (c0 + width - 1 - cmin) // ch + 1, 0)
+        nq = int(q_hi.max())
+        diff = torch.zeros(c0.shape[0], nq + 1, dtype=torch.long, device=dev)
+        diff.scatter_add_(1, q_lo, m.long()).scatter_add_(1, q_hi, -m.long())
+        used = diff.cumsum(1)[:, :nq] > 0
+        x0 = cmin + torch.arange(nq, device=dev) * ch
+        cols = torch.where(used, (bcols - x0).clamp(0, ch), 0).sum(1)
+        if matmul:
+            K = (brows - call.blk_start.long()).clamp(max=rb.BAND_ROWS)
+        else:
+            span = (torch.where(m, rw0, -big).amax(1) + call.th
+                    - torch.where(m, rw0, big).amin(1))
+            K = ((span + 15) // 16 * 16).clamp(max=rb.BAND_ROWS)
+        total += int((K * cols)[m.any(1)].sum())
+    return total * shape["j_groups"] * C * item
+
+
+def call_buffers(call):
+    return call.bufs if hasattr(call, "bufs") else call.pyramid.bufs
+
+
+def phase_staged(calls, flush, ab=None):
     """Each staged kernel against its plain version on the forward's own
-    aligns, in bfloat16 and float32."""
+    aligns, in bfloat16 and float32. ``ab``: kernel -> other builds of it,
+    each timed in turns with it (other, kernel, kernel, other)."""
+    ab = ab or {}
     recs = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
@@ -481,8 +556,21 @@ def phase_staged(calls, flush):
                                ms=device_ms(lambda: kernel(call), 10, flush),
                                call_ms=device_ms(lambda: kernel(prepare()), 10, flush),
                                plain_ms=device_ms(lambda: plain(call), 3, flush),
-                               bound_ms=max(t_bytes, t_ops),
-                               bound_by="bytes" if t_bytes >= t_ops else "operations")
+                               bound_ms=max(t_bytes, t_ops), bound_bytes=nbytes,
+                               bound_by="bytes" if t_bytes >= t_ops else "operations",
+                               staged_bytes_host=staged_bytes_host(kernel, call))
+                    if kernel in CORE_KERNELS:
+                        rec["launch_shape"] = kernel.launch_shape(dtype, call.kroi,
+                                                                  out_size[0], call.tw)
+                    rec["ab"] = []
+                    for other in ab.get(kernel, ()):
+                        ab_err, ab_ok = staged_ok(other(call), ref, feats, t1_rounded)
+                        turns = [device_ms(lambda: k(call), 10, flush)
+                                 for k in (other, kernel, kernel, other)]
+                        rec["ab"].append(dict(
+                            source=str(other.source), max_abs_err=ab_err, agrees=ab_ok,
+                            ms_turns=turns, ms=statistics.median([turns[0], turns[3]]),
+                            this_ms=statistics.median(turns[1:3])))
                 print("staged " + json.dumps(rec), flush=True)
                 check(ok, f"{variant} kernel and its plain version disagree on {label} "
                           f"({dname}): max abs error {err}")
@@ -690,7 +778,7 @@ def kernel_record(name, launches, recs):
         library_ms=None,
         calls=[{k: r[k] for k in ("call", "variant", "dtype", "rois", "out", "ms", "call_ms",
                                   "plain_ms", "empty_ms", "bound_ms", "bound_by",
-                                  "bound_share", "distinct_taps_per_bin", "max_abs_err")
+                                  "bound_share", "max_abs_err")
                 if k in r} for r in recs],
     )
 
@@ -708,10 +796,20 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="FILE",
                     help="profile the serving forward; write the table to FILE")
-    ap.add_argument("--ab", type=Path, metavar="SOURCE", action="append", default=[],
-                    help="also time SOURCE, a build of the direct kernel's C interface, "
-                         "in turns with csrc/roi_align.cu in phases 3-4 (repeatable)")
+    ap.add_argument("--ab", metavar="[NAME=]SOURCE", action="append", default=[],
+                    help="also time SOURCE, another build of kernel NAME's C interface "
+                         "(a name of the kernels line; default roi_align, the direct "
+                         "kernel), in turns with this one: phases 3-4 for the direct "
+                         "kernel, phase 6 for a staged one (repeatable)")
     args = ap.parse_args()
+    by_name = {name: k for k, name in KERNEL_NAMES.items()}
+    ab_specs = []
+    for spec in args.ab:
+        name, _, src = spec.rpartition("=")
+        name = name or "roi_align"
+        if name not in by_name:
+            ap.error(f"--ab {spec}: {name!r} is not one of {sorted(by_name)}")
+        ab_specs.append((by_name[name], Path(src)))
     if not torch.cuda.is_available():
         print("FAIL no CUDA device is available", file=sys.stderr)
         return 1
@@ -729,12 +827,18 @@ def main() -> int:
         for line in rc.build_all.log.splitlines():
             if line.startswith("==") or "registers" in line or "spill" in line:
                 print(f"build {line.strip()}", flush=True)
-        attributes = roi_align_kernel.attributes()
-        print("build direct kernel " + json.dumps(attributes), flush=True)
-        check(all(a["local_bytes"] == 0 for a in attributes.values()),
-              f"the direct kernel uses local memory (spills or stack): {attributes}")
-        ab = [rc.RoIAlignKernel(source=src) for src in args.ab]
-        for other in ab:
+        attributes = {roi_align_kernel: roi_align_kernel.attributes()}
+        attributes.update({k: k.attributes() for k in CORE_KERNELS})
+        for k, attr in attributes.items():
+            print(f"build {KERNEL_NAMES[k]} " + json.dumps(attr), flush=True)
+            check(all(a["local_bytes"] == 0 for a in attr.values()),
+                  f"{KERNEL_NAMES[k]} uses local memory (spills or stack): {attr}")
+        ab = [rc.RoIAlignKernel(source=src) for k, src in ab_specs if k is roi_align_kernel]
+        ab_staged = {}
+        for k, src in ab_specs:
+            if k is not roi_align_kernel:
+                ab_staged.setdefault(k, []).append(k.with_source(src))
+        for other in ab + [o for v in ab_staged.values() for o in v]:
             other.build()
             for line in other.build_log.splitlines():
                 if "registers" in line or "spill" in line:
@@ -748,7 +852,7 @@ def main() -> int:
                                                                      args.profile, ab)
         with align_env({}):
             phase_tiny()
-        staged = phase_staged(calls, flush)
+        staged = phase_staged(calls, flush, ab_staged)
         del calls
         paths = phase_serve_variants(sess, requests, cfg, card)
         micro = phase_micro()
@@ -758,7 +862,7 @@ def main() -> int:
 
     direct = kernel_record("roi_align", default_counts["roi_align"], forward)
     direct["max_abs_err"] = max(r["max_abs_err"] for r in synthetic + forward)
-    direct["attributes"] = attributes
+    direct["attributes"] = attributes[roi_align_kernel]
     launches = {"roi_align_tile": micro["roi_align_tile"],
                 "roi_align_band_tiered": paths["band tiered"]["roi_align_band_tiered"],
                 "roi_align_band_packed": micro["roi_align_band_packed"],
@@ -767,6 +871,10 @@ def main() -> int:
         kernel_record(name, n, [r for r in staged if r["kernel"] == name
                                 and r["variant"] != "matmul t1 bf16"])
         for name, n in launches.items()]
+    for rec in kernels:
+        core = [k for k in CORE_KERNELS if KERNEL_NAMES[k] == rec["name"]]
+        if core:
+            rec["attributes"] = attributes[core[0]]
     print(f"clocks {clocks_line()}", flush=True)
     print(f"seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

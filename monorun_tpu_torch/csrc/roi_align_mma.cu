@@ -18,29 +18,32 @@
 // Bound on an H100: bytes. The interpolation is about one FMA per byte
 // read, so the tensor cores cannot be the limit; what they change is how
 // many instructions the row product costs. The matmul variant also
-// computes its row product for panel columns outside a RoI's window, which
+// computes its row product for band rows outside a RoI's window, which
 // costs operations, not bytes.
 //
-// Design: one block per (kroi-block, channel slice). For each chunk of 16
-// columns, the block stages the inputs of the row product into shared
-// memory with cp.async (packed: each RoI's 32 window rows at its own
-// column offset, stacked along K; matmul: the 64 band rows of the panel
-// chunk), computes t1 = A @ B with mma.sync m16n8k16 (bfloat16 in, float32
-// accumulate; N = 16 columns x the slice's channels), and then adds
-// X @ t1 for the chunk's columns of each RoI's window into per-RoI sums in
-// shared memory, in float32 on CUDA cores. float32 features have no exact
-// tensor-core mode (TF32 keeps 10 bits), so their row product runs on CUDA
-// cores in float32 with the same staging. A's rows beyond the RoIs are
-// zero, and the stack rows of a dummy slot are zero-filled, so no unloaded
-// shared memory meets a zero weight (0 * NaN). Each RoI lands in its
-// output row and orientation directly.
+// Packed design: one block per (kroi-block, channel slice). For each chunk
+// of 16 columns, the block stages each RoI's 32 window rows at its own
+// column offset, stacked along K, into shared memory with cp.async,
+// computes t1 = A @ B with mma.sync m16n8k16 (bfloat16 in, float32
+// accumulate; N = 16 columns x the slice's channels), and then adds X @ t1
+// for the chunk's columns into per-RoI sums in shared memory, in float32
+// on CUDA cores. float32 features have no exact tensor-core mode (TF32
+// keeps 10 bits), so their row product runs on CUDA cores in float32 with
+// the same staging. The stack rows of a dummy slot are zero-filled, so no
+// unloaded shared memory meets a zero weight (0 * NaN). Each RoI lands in
+// its output row and orientation directly.
+//
+// Matmul design: the staged core of roi_align_ring.cuh, with A = the
+// block's Y over the whole band (K = 64): a cp.async ring of column
+// chunks, the row product on mma.sync with A in registers (bfloat16), t1
+// and the per-RoI sums in registers.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (monorun_tpu_torch/ops/roi_align_cuda.py).
 
 #include <type_traits>
 
-#include "roi_align_staged.cuh"
+#include "roi_align_ring.cuh"
 
 namespace {
 
@@ -60,19 +63,6 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // t1 (mpad x N, float32, shared) = A (mpad x K) @ B (K x N, bfloat16,
 // shared, row stride N) on tensor cores, one warp per 16 x 8 output tile.
 // load_a(m, k) returns A[m][k] and A[m][k + 1] packed (k even).
@@ -88,9 +78,9 @@ __device__ void product_mma(float* t1, const __nv_bfloat16* B, int K, int N, int
     for (int k0 = 0; k0 < K; k0 += 16) {
       const int ka = k0 + tig * 2;
       const __nv_bfloat16* bp = B + (long long)ka * N + n0 + gid;
-      mma_bf16(d, load_a(m0 + gid, ka), load_a(m0 + gid + 8, ka), load_a(m0 + gid, ka + 8),
-               load_a(m0 + gid + 8, ka + 8), pack_bf16(bp[0], bp[N]),
-               pack_bf16(bp[8 * N], bp[9 * N]));
+      const uint32_t a[4] = {load_a(m0 + gid, ka), load_a(m0 + gid + 8, ka),
+                             load_a(m0 + gid, ka + 8), load_a(m0 + gid + 8, ka + 8)};
+      mma_bf16(d, a, pack_bf16(bp[0], bp[N]), pack_bf16(bp[8 * N], bp[9 * N]));
     }
     float* tp = t1 + (long long)(m0 + gid) * N + n0 + tig * 2;
     tp[0] = round_t1 ? round_bf16(d[0]) : d[0];
@@ -217,119 +207,6 @@ __global__ void __launch_bounds__(kThreads) roi_align_band_packed_kernel(Buffers
   }
 }
 
-// ---- whole-block row product over a (band, panel) group -------------------
-
-struct MatmulArgs {
-  const int* c0rel;      // (m_pad,) window column inside the panel
-  const int* dst;        // (m_pad,)
-  const int* trans;      // (m_pad,)
-  const int* blk_buf;    // (nblk,)
-  const int* blk_start;  // (nblk,) first band row
-  const int* blk_po;     // (nblk,) first panel column
-  const int* blk_act;    // (nblk,) 0 for trailing all-dummy blocks
-  const void* Y;         // (m_pad, oh, 64) over the whole band
-  const void* X;         // (m_pad, ow, tw)
-  void* out;
-  int kroi, channels, cs, oh, ow, tw, t1_bf16;
-};
-
-struct MatmulLayout {
-  size_t t1, acc, total;
-};
-
-__host__ __device__ inline MatmulLayout matmul_layout(int cs, int elt, int kroi, int oh,
-                                                      int ow) {
-  const size_t N = (size_t)kChunk * cs, mpad = round16(kroi * oh);
-  MatmulLayout l;
-  l.t1 = align16((size_t)kBandRows * N * elt);
-  l.acc = l.t1 + align16(mpad * N * 4);
-  l.total = l.acc + (size_t)kroi * ow * oh * cs * 4;
-  return l;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) roi_align_band_matmul_kernel(Buffers bufs,
-                                                                         MatmulArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int blk = blockIdx.x;
-  if (!a.blk_act[blk]) return;
-  const int cs = a.cs, oh = a.oh, ow = a.ow, kroi = a.kroi, tw = a.tw;
-  const int N = kChunk * cs, M = kroi * oh, mpad = round16(M);
-  const MatmulLayout lay = matmul_layout(cs, sizeof(T), kroi, oh, ow);
-  T* s = reinterpret_cast<T*>(smem);
-  float* t1 = reinterpret_cast<float*>(smem + lay.t1);
-  float* acc = reinterpret_cast<float*>(smem + lay.acc);
-  const int cs0 = blockIdx.y * cs;
-  const long long first = (long long)blk * kroi;
-
-  int cmin = 1 << 30, cmax = -1;
-  for (int g = 0; g < kroi; ++g) {
-    if (a.dst[first + g] < 0) continue;
-    cmin = min(cmin, a.c0rel[first + g]);
-    cmax = max(cmax, a.c0rel[first + g] + tw);
-  }
-  if (cmax < 0) return;  // no real RoI in the block
-  const int b = a.blk_buf[blk], bstart = a.blk_start[blk], po = a.blk_po[blk];
-  const T* buf = static_cast<const T*>(bufs.ptr[b]);
-  const T* Yb = static_cast<const T*>(a.Y) + first * oh * kBandRows;
-  const T* X = static_cast<const T*>(a.X);
-
-  zero_shared(acc, kroi * ow * oh * cs);
-  for (int x0 = cmin; x0 < cmax; x0 += kChunk) {
-    bool used = false;
-    for (int g = 0; g < kroi; ++g) {
-      const int c = a.c0rel[first + g];
-      used |= a.dst[first + g] >= 0 && c < x0 + kChunk && c + tw > x0;
-    }
-    if (!used) continue;  // uniform across the block
-    stage_window(s, kChunk, buf, bufs.cols[b], a.channels, bstart, kBandRows, po + x0, kChunk,
-                 cs0, cs);
-    cp_async_wait_all();
-    __syncthreads();
-    if constexpr (IsBf16<T>::value) {
-      product_mma(t1, s, kBandRows, N, mpad,
-                  [&](int m, int k) -> uint32_t {
-                    return m < M ? *reinterpret_cast<const uint32_t*>(Yb + m * kBandRows + k)
-                                 : 0u;
-                  },
-                  a.t1_bf16 != 0);
-    } else {
-      for (int t = threadIdx.x; t < M * N; t += blockDim.x) {
-        const int m = t / N, n = t % N;
-        const float* yr = Yb + (size_t)m * kBandRows;
-        float v = 0.f;
-        for (int k = 0; k < kBandRows; ++k) v += yr[k] * s[(size_t)k * N + n];
-        t1[t] = a.t1_bf16 ? round_bf16(v) : v;
-      }
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < kroi * ow * oh * cs; t += blockDim.x) {
-      const int c = t % cs, i = (t / cs) % oh, j = (t / (cs * oh)) % ow;
-      const int g = t / (cs * oh * ow);
-      const long long slot = first + g;
-      const int c0 = a.c0rel[slot];
-      const int wlo = max(c0, x0), whi = min(c0 + tw, x0 + kChunk);
-      if (a.dst[slot] < 0 || wlo >= whi) continue;
-      const T* xr = X + (slot * ow + j) * tw - c0;
-      const float* tr = t1 + (size_t)(g * oh + i) * N + c - x0 * cs;
-      float v = 0.f;
-      for (int w = wlo; w < whi; ++w) {
-        const float xw = to_float(xr[w]);
-        v += (a.t1_bf16 ? round_bf16(xw) : xw) * tr[w * cs];
-      }
-      acc[t] += v;
-    }
-    __syncthreads();
-  }
-  for (int g = 0; g < kroi; ++g) {
-    const int d = a.dst[first + g];
-    if (d >= 0) {
-      write_roi(static_cast<T*>(a.out), acc + (size_t)g * ow * oh * cs, d,
-                a.trans[first + g], a.channels, cs0, cs, oh, ow);
-    }
-  }
-}
-
 }  // namespace
 
 // K-packed band align over nblk blocks of kroi slots (kroi % 4 == 0). Per
@@ -364,12 +241,13 @@ extern "C" int roi_align_band_packed_forward(
                           bufs, a);
 }
 
-// Whole-block band align over nblk blocks of kroi slots. Per slot (device
-// int32): window column inside the panel, output row (-1 for a dummy),
-// transposed; per block: buffer, first band row, first panel column,
-// active. Y spans the whole 64-row band. t1_bf16 rounds the row product
-// (and X) to bfloat16. Launches on `stream`, allocates nothing, does not
-// synchronise; returns the launch's cudaError_t.
+// Whole-block band align over nblk blocks of kroi slots, on the staged core
+// of roi_align_ring.cuh. Per slot (device int32): window column inside the
+// panel, output row (-1 for a dummy), transposed; per block: buffer, first
+// band row, first panel column, active. Y spans the whole 64-row band.
+// t1_bf16 rounds the row product (and X) to bfloat16. Launches on
+// `stream`, allocates nothing, does not synchronise; returns the launch's
+// cudaError_t.
 extern "C" int roi_align_band_matmul_forward(
     int is_bf16, const void* const* buf_ptrs, const int* buf_rows, const int* buf_cols,
     int nbufs, const int* c0rel, const int* dst, const int* trans, const int* blk_buf,
@@ -380,19 +258,37 @@ extern "C" int roi_align_band_matmul_forward(
   int rc = make_buffers(&bufs, buf_ptrs, buf_rows, buf_cols, nbufs);
   if (rc) return rc;
   if (nblk <= 0 || kroi < 1 || tw % kChunk || out_h != out_w) return (int)cudaErrorInvalidValue;
-  MatmulArgs a{c0rel, dst, trans, blk_buf, blk_start, blk_po, blk_act, Y, X, out,
-               kroi, channels, 0, out_h, out_w, tw, t1_bf16};
-  const int elt = is_bf16 ? 2 : 4;
-  a.cs = pick_slice(channels, elt,
-                    [&](int cs) { return matmul_layout(cs, elt, kroi, out_h, out_w).total; });
-  if (!a.cs) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)nblk, (unsigned)(channels / a.cs));
-  const size_t smem = matmul_layout(a.cs, elt, kroi, out_h, out_w).total;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch(roi_align_band_matmul_kernel<__nv_bfloat16>, grid, dim3(kThreads),
-                          smem, s, bufs, a)
-                 : launch(roi_align_band_matmul_kernel<float>, grid, dim3(kThreads), smem, s,
-                          bufs, a);
+  ring::Work a{};
+  a.c0 = c0rel;
+  a.dst = dst;
+  a.trans = trans;
+  a.blk_buf = blk_buf;
+  a.blk_start = blk_start;
+  a.blk_po = blk_po;
+  a.blk_act = blk_act;
+  a.Y = Y;
+  a.X = X;
+  a.out = out;
+  a.kroi = kroi;
+  a.channels = channels;
+  a.oh = out_h;
+  a.ow = out_w;
+  a.th = kBandRows;
+  a.tw = tw;
+  a.t1_bf16 = t1_bf16 != 0;
+  return ring::launch<true>(is_bf16, bufs, a, nblk, static_cast<cudaStream_t>(stream));
+}
+
+// Registers, local memory bytes and static shared memory bytes of the
+// loaded build's band-matmul kernel in each dtype.
+extern "C" int roi_align_band_matmul_attributes(int is_bf16, int* regs, int* local,
+                                                int* static_smem) {
+  return ring::attributes<true>(is_bf16, regs, local, static_smem);
+}
+
+// The band-matmul launch shape of a call into v[0..8] (see ring::shape).
+extern "C" int roi_align_band_matmul_shape(int is_bf16, int kroi, int out_h, int tw, int* v) {
+  return ring::shape<true>(is_bf16, kroi, out_h, tw, v);
 }
 
 extern "C" const char* roi_align_mma_error_string(int code) {

@@ -241,6 +241,42 @@ def band_call_plain(call: BandCall) -> Tensor:
                               call.trans, call.dst, call.n, call.t1_dtype)
 
 
+def tiered_union_product(call: BandCall) -> Tensor:
+    """The tiered kernel's arithmetic (``csrc/roi_align_band.cu`` on the
+    staged core ``csrc/roi_align_ring.cuh``) in plain PyTorch, float32.
+
+    Per block, A stacks its real slots' (oh, th) Y matrices zero-extended
+    over the union of their window rows: K rows (the union rounded up to
+    16, at most 64) from ``r0 = min(union start, buffer rows - K)``, exact
+    zeros outside each slot's th rows. One row product ``A @ window`` over
+    the union's rows and columns serves every slot; each slot then takes
+    its own ``32 * tier`` columns and X. Same function as
+    ``band_call_plain``."""
+    kroi, th = call.kroi, call.th
+    oh, C = call.Y.shape[1], call.bufs[0].shape[-1]
+    out = torch.zeros((call.n, oh, oh, C), dtype=call.bufs[0].dtype, device=call.Y.device)
+    dst = call.dst.view(-1, kroi)
+    for blk in (dst >= 0).any(1).nonzero().flatten().tolist():
+        slots = blk * kroi + (dst[blk] >= 0).nonzero().flatten()
+        buf = call.bufs[int(call.blk_buf[blk])]
+        rw0, c0 = call.row0[slots].long(), call.col0[slots].long()
+        width = int(call.blk_ncb[blk]) * COL_BLK
+        rmin, rmax = int(rw0.min()), int(rw0.max()) + th
+        K = min(BAND_ROWS, -(-(rmax - rmin) // 16) * 16)
+        r0 = max(0, min(rmin, buf.shape[0] - K))
+        cmin, cmax = int(c0.min()), int(c0.max()) + width
+        rows = (rw0 - r0)[:, None] + torch.arange(th, device=rw0.device)   # (s, th)
+        A = call.Y.new_zeros((slots.numel(), oh, K), dtype=torch.float32)
+        A.scatter_(2, rows[:, None, :].expand(-1, oh, -1), call.Y[slots].float())
+        t1 = torch.einsum("sik,kwc->siwc", A, buf[r0:r0 + K, cmin:cmax].float())
+        cols = (c0 - cmin)[:, None] + torch.arange(width, device=c0.device)  # (s, width)
+        t1 = t1.gather(2, cols[:, None, :, None].expand(-1, oh, -1, C))
+        res = torch.einsum("sjw,siwc->sijc", call.X[slots, :, :width].float(), t1)
+        res = torch.where(call.trans[slots].bool()[:, None, None, None], res.transpose(1, 2), res)
+        out[call.dst[slots].long()] = res.to(out.dtype)
+    return out
+
+
 def run_band_call(call: BandCall) -> Tensor:
     """The mode's kernel on CUDA tensors, the plain version on CPU tensors."""
     if not call.Y.is_cuda:

@@ -18,6 +18,11 @@ Kernels, each with a ``launches`` count (one per call that launches it):
   blocks;
 * ``band_packed_kernel`` and ``band_matmul_kernel``
   (``csrc/roi_align_mma.cu``): row products on tensor cores.
+
+The tiered and matmul kernels share the staged core
+``csrc/roi_align_ring.cuh``; their wrappers also report the loaded build's
+attributes and a call's launch shape. ``StagedKernel.with_source`` binds
+another build of a staged kernel's C interface, for an A/B.
 """
 
 from __future__ import annotations
@@ -62,7 +67,8 @@ def _nvcc() -> str:
 
 def _start_nvcc(src: Path, lib: Path):
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    # headers: the source's own directory first, then csrc/
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return lib, tmp, proc
 
@@ -83,9 +89,13 @@ def _finish_nvcc(jobs) -> Tuple[str, list]:
 
 def build_source(src: Path) -> Tuple[ctypes.CDLL, str]:
     """One source built alone with the same flags (into a directory named
-    by its content's hash), and nvcc's log."""
+    by the hash of its content and of the headers in its directory and in
+    csrc/), and nvcc's log. Headers it includes come from its own
+    directory, else from csrc/."""
     src = Path(src)
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
+    for path in sorted(CSRC.glob("*.cuh")) + sorted(src.parent.glob("*.cuh")):
+        digest.update(path.name.encode() + path.read_bytes())
     out_dir = BUILD_DIR / f"one-{digest.hexdigest()[:16]}"
     out_dir.mkdir(parents=True, exist_ok=True)
     lib = out_dir / f"lib{src.stem}.so"
@@ -285,27 +295,93 @@ _BUFS = [_I, ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_I), _I]
 class StagedKernel:
     """Wrapper of one staged kernel (prepared inputs from
     ``roi_align_tile.prepare_tile_call`` or
-    ``roi_align_band.prepare_band_call``), with a launch count."""
+    ``roi_align_band.prepare_band_call``), with a launch count. ``lib`` is
+    the stem of its source under ``csrc/``; ``source`` builds another file
+    with the same C interface instead (an earlier version, for an A/B)."""
 
-    def __init__(self, name: str, source: str, symbol: str, argtypes):
+    def __init__(self, name: str, lib: str, symbol: str, argtypes,
+                 source: Optional[Path] = None):
         self.name = name
-        self.source = source
+        self.lib = lib
         self.symbol = symbol
         self.argtypes = argtypes
+        self.source = source
         self.launches = 0
+        self.build_log = ""
+        self._lib = None
         self._fn = None
         self._err = None
 
+    def with_source(self, source: Path) -> "StagedKernel":
+        """The same wrapper bound to a build of ``source``."""
+        return StagedKernel(self.name, self.lib, self.symbol, self.argtypes, Path(source))
+
+    def _load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            if self.source is None:
+                self._lib, self.build_log = build_all()[self.lib], build_all.log
+            else:
+                self._lib, self.build_log = build_source(self.source)
+        return self._lib
+
+    def build(self) -> ctypes.CDLL:
+        """Build (unless built) and bind this kernel."""
+        self._bind()
+        return self._lib
+
     def _bind(self):
         if self._fn is None:
-            lib = build_all()[self.source]
+            lib = self._load()
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            err = getattr(lib, f"{self.source}_error_string")
+            err = getattr(lib, f"{self.lib}_error_string")
             err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
             self._fn, self._err = fn, err
         return self._fn
+
+    def _entry(self, suffix: str):
+        """The C entry ``<symbol without _forward>_<suffix>`` (the staged
+        core's kernels export ``attributes`` and ``shape``)."""
+        self._bind()
+        return getattr(self._load(), self.symbol.removesuffix("_forward") + "_" + suffix)
+
+    def attributes(self) -> Dict[str, Dict[str, int]]:
+        """Registers and local memory bytes per thread and static shared
+        memory bytes per block of the loaded build's kernel in each dtype
+        (the most over the dtype's builds: float32 has one for 8 and one
+        for 16 output columns per block), from ``cudaFuncGetAttributes``."""
+        fn = self._entry("attributes")
+        fn.argtypes = [_I] + [ctypes.POINTER(_I)] * 3
+        fn.restype = _I
+        usage = {}
+        for dname, is_bf16 in (("bfloat16", 1), ("float32", 0)):
+            regs, local, static = _I(), _I(), _I()
+            rc = fn(is_bf16, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(static))
+            if rc != 0:
+                raise RuntimeError(f"{self.name} attributes query failed: "
+                                   + self._err(rc).decode())
+            usage[dname] = dict(registers=regs.value, local_bytes=local.value,
+                                static_smem=static.value)
+        return usage
+
+    def launch_shape(self, dtype: torch.dtype, kroi: int, out_size: int,
+                     tw: int) -> Dict[str, int]:
+        """The launch shape the C launcher picks for a call: channels per
+        block, columns per ring stage, m-tiles per block, blocks along A's
+        rows and along the output columns per kroi-block, slots per block,
+        dynamic shared memory bytes, threads, and resident blocks per SM
+        (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+        fn = self._entry("shape")
+        fn.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]
+        fn.restype = _I
+        vals = (_I * 9)()
+        rc = fn(int(dtype == torch.bfloat16), kroi, out_size, tw, vals)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} shape query failed: " + self._err(rc).decode())
+        keys = ("channels", "stage_cols", "m_tiles", "m_groups", "j_groups", "slots",
+                "smem_bytes", "threads", "blocks_per_sm")
+        return dict(zip(keys, list(vals)))
 
     @staticmethod
     def _buffers(bufs: Sequence[Tensor]):

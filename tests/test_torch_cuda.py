@@ -348,3 +348,138 @@ def test_staged_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rc.band_packed_kernel(band)
     assert kernel.launches == 0 and kernel._fn is None
+
+
+# ---- the staged core (csrc/roi_align_ring.cuh): band tiered and band matmul --
+
+CORE_VARIANTS = {
+    "tiered": (rc.band_tiered_kernel, dict(tiered=True)),
+    "matmul": (rc.band_matmul_kernel, dict(matmul=True)),
+    "matmul_t1_bf16": (rc.band_matmul_kernel, dict(matmul=True, t1_dtype=torch.bfloat16)),
+}
+LAZY_SLIVERS = np.array([[0, 10.0, 50.0, 480.0, 60.0], [1, 20.0, 30.0, 420.0, 42.0]],
+                        np.float32)
+# name -> pyramid (H, W, C), RoIs (n, largest side, extra), out size, finest, kroi
+CORE_CASES = {
+    # 120 small RoIs at level 0: blocks of 16 whose windows span the band
+    "full_band": dict(H=128, W=256, C=32, n=120, side=24.0, out=7, finest=40.0, kroi=16),
+    # levels 48x160, 48x160, 24x80 and 12x40: the last narrower than a panel
+    "narrow_level": dict(H=192, W=640, C=32, n=60, side=600.0, out=7, finest=10.0, kroi=8),
+    "c64": dict(H=64, W=128, C=64, n=40, side=60.0, out=7, finest=10.0, kroi=8),
+    "c128": dict(H=64, W=128, C=128, n=40, side=60.0, out=14, finest=14.0, kroi=8),
+    "kroi4": dict(H=64, W=128, C=32, n=40, side=60.0, out=14, finest=14.0, kroi=4),
+    "kroi16": dict(H=64, W=128, C=32, n=40, side=60.0, out=7, finest=10.0, kroi=16),
+    "kroi32": dict(H=64, W=128, C=32, n=40, side=60.0, out=14, finest=14.0, kroi=32),
+    # lazy-level slivers that overrun the 96-column window (kernel == plain)
+    "slivers": dict(H=128, W=512, C=32, n=8, side=60.0, out=7, finest=20.0, kroi=4,
+                    extra=LAZY_SLIVERS),
+}
+
+
+def _core_call(case, variant, device, dtype):
+    """(features, RoIs as numpy, prepared band call) of one edge case."""
+    p = CORE_CASES[case]
+    feats = _pyramid(device, dtype, H=p["H"], W=p["W"], C=p["C"], seed=3)
+    rng = np.random.default_rng(3)
+    n, H, W = p["n"], p["H"], p["W"]
+    x1, y1 = rng.uniform(0, W - 4, n), rng.uniform(0, H - 4, n)
+    rois = np.stack([rng.integers(0, 2, n), x1, y1,
+                     np.clip(x1 + rng.uniform(1, p["side"], n), None, W),
+                     np.clip(y1 + rng.uniform(1, p["side"] / 2, n), None, H)], 1)
+    rois = np.concatenate([rois.astype(np.float32), p.get("extra", SPECIAL[:0])])
+    kw = dict(CORE_VARIANTS[variant][1], kroi=p["kroi"])
+    call = rb.prepare_band_call(feats, torch.from_numpy(rois).to(device), STRIDES,
+                                (p["out"],) * 2, p["finest"], 6, **kw)
+    return feats, rois, call
+
+
+def _core_case_holds(case, call):
+    """The edge each case is there for, and blocks every case has: all-dummy
+    blocks (matmul: trailing inactive ones) and RoIs in both orientations."""
+    real = call.dst.view(-1, call.kroi) >= 0
+    assert (~real).all(1).any()
+    if call.mode == "matmul":
+        assert not bool(call.blk_act.bool().all())
+    trans = call.trans[call.dst >= 0]
+    assert trans.any() and not trans.all()
+    if case == "full_band" and call.mode == "tiered":
+        rw0 = call.row0.view(-1, call.kroi)
+        assert max(int(r[m].max() - r[m].min()) for r, m in zip(rw0, real) if m.any()) \
+            + call.th > 48          # K = 64: the whole band
+    if case == "narrow_level":
+        narrow = [i for i, b in enumerate(call.bufs) if b.shape[1] < 2 * call.tw]
+        used = call.blk_buf.view(-1, 1).expand_as(real)[real]
+        assert narrow and any(int(b) in narrow for b in used)
+
+
+@pytest.mark.parametrize("case", list(CORE_CASES))
+def test_core_cases_hold_on_cpu(case):
+    """Each edge case reaches its edge; on the CPU the tiered core's
+    zero-extended product (``tiered_union_product``) matches the tiered
+    plain version, and the tiered and matmul plain versions agree with the
+    gather version on every RoI whose window holds all its taps."""
+    p = CORE_CASES[case]
+    out = (p["out"],) * 2
+    for variant in ("tiered", "matmul"):
+        feats, rois, call = _core_call(case, variant, "cpu", torch.float32)
+        _core_case_holds(case, call)
+        plain = rb.band_call_plain(call)
+        if variant == "tiered":
+            torch.testing.assert_close(rb.tiered_union_product(call), plain,
+                                       rtol=1e-5, atol=5e-5)
+        rois = torch.from_numpy(rois)
+        gather = ra.multilevel_roi_align(feats, rois, STRIDES, out, p["finest"], max_ratio=6,
+                                         long_span_cap=ra.LONG_SPAN_CAP)
+        fits = rt.roi_tile_geometry(rois, rt.prepare_flat_pyramid(feats).sizes, STRIDES, out,
+                                    p["finest"], 6, rt.MAX_TH, rt.MAX_TW, torch.float32).fits
+        assert fits.sum() >= p["n"]
+        torch.testing.assert_close(plain[fits], gather[fits], rtol=1e-5, atol=5e-5)
+    assert case != "slivers" or call.n == p["n"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CORE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", list(CORE_VARIANTS))
+def test_core_kernels_match_plain_on_edges(cuda_device, variant, dtype, case):
+    feats, _, call = _core_call(case, variant, cuda_device, dtype)
+    _core_case_holds(case, call)
+    kernel = CORE_VARIANTS[variant][0]
+    _check_staged(kernel, call, rb.band_call_plain(call), feats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["tiered", "matmul"])
+def test_core_kernels_take_no_rois(cuda_device, variant, dtype):
+    feats = _pyramid(cuda_device, dtype)
+    kernel, kw = CORE_VARIANTS[variant]
+    call = rb.prepare_band_call(feats, torch.zeros(0, 5, device=cuda_device), STRIDES,
+                                (7, 7), 10.0, 3, kroi=4, **kw)
+    before = kernel.launches
+    got = kernel(call)
+    torch.cuda.synchronize()
+    assert got.shape == (0, 7, 7, 32) and kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["tiered", "matmul"])
+def test_core_kernels_keep_sums_in_registers(cuda_device, variant):
+    """No local memory in either dtype, at most 128 registers (2 blocks
+    of 8 warps per SM), and channel slices of at least
+    16 with at least 2 resident blocks per SM at the serving shapes (7x7
+    and 14x14, bfloat16 and float32). A block takes 8 output columns, and
+    16 in float32 when the output is wider, so float32 14x14 computes its
+    row product once."""
+    kernel = CORE_VARIANTS[variant][0]
+    attributes = kernel.attributes()
+    assert set(attributes) == {"bfloat16", "float32"}
+    for a in attributes.values():
+        assert a["local_bytes"] == 0 and 0 < a["registers"] <= 128
+    kroi = 4 if variant == "tiered" else 16
+    for dtype in (torch.bfloat16, torch.float32):
+        for out in (7, 14):
+            shape = kernel.launch_shape(dtype, kroi, out, 96)
+            assert shape["channels"] >= 16 and shape["blocks_per_sm"] >= 2, shape
+            assert shape["threads"] == 256
+            assert shape["j_groups"] == (2 if out == 14 and dtype == torch.bfloat16 else 1)

@@ -304,3 +304,23 @@ def test_lazy_level_slivers_overrun_the_tile():
                                       long_span_cap=CAP).numpy()
     np.testing.assert_allclose(got[fits], gather[fits], **TOL)
     assert np.abs(got[~fits] - gather[~fits]).max() > 0.1
+
+
+@pytest.mark.parametrize("out_size,finest,max_ratio", CASES)
+def test_tiered_union_product_matches_plain_and_pallas(out_size, finest, max_ratio):
+    """The tiered core's zero-extended union-row product, stated in plain
+    PyTorch, against the plain version on the same slots and the JAX
+    tiered Pallas kernel in interpret mode; its blocks reach past one
+    slot's rows, so the zero extension is exercised."""
+    feats, rois = _pyramid(), _rois()
+    call = tband.prepare_band_call(_t(feats), torch.from_numpy(rois), STRIDES, out_size,
+                                   finest, max_ratio, kroi=4, tiered=True)
+    real = call.dst.view(-1, 4) >= 0
+    rw0 = call.row0.view(-1, 4)
+    assert max(int(r[m].max() - r[m].min()) for r, m in zip(rw0, real) if m.any()) > 0
+    got = tband.tiered_union_product(call).numpy()
+    np.testing.assert_allclose(got, tband.band_call_plain(call).numpy(), **TOL)
+    with _interpret(jband):
+        ref = jband.multilevel_roi_align_band(_j(feats), jnp.asarray(rois), STRIDES, out_size,
+                                              finest, max_ratio=max_ratio, kroi=4, tiered=True)
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
