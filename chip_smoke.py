@@ -43,8 +43,9 @@ Phases, each printing its own lines:
    the same prepared inputs: the forward's own three aligns, in bfloat16
    and float32, with the kernel's time, the time of the call with its
    preparation, the plain version's time, the bound and its bytes, the
-   bytes the kernel stages (counted from the prepared call) and, for the
-   staged core's kernels (tiered, matmul), the launch shape; with
+   bytes the kernel stages (counted from the prepared call) and the
+   launch shape (all four run the staged core ``csrc/roi_align_ring.cuh``);
+   with
    ``--ab NAME=SOURCE`` the other build's time in turns; in bfloat16 also
    its gap to the gather version (float32 weights) on the RoIs whose taps
    fit the staged window (lazy-level slivers overrun it, as in the JAX
@@ -56,7 +57,7 @@ Phases, each printing its own lines:
 8. the align micro-bench's A/B (``monorun_tpu_torch.tools.micro_bench``
    ``align48``), the path that reaches the tile and packed kernels;
 9. a ``kernels`` JSON line (the registers and local memory bytes per
-   thread and dtype of the direct kernel and of the staged core's kernels,
+   thread and dtype of the direct kernel and of the four staged kernels,
    as the loaded build reports them, among their keys; local memory, a
    spill, fails the run) and, last, the JSON result line.
 
@@ -438,43 +439,39 @@ def staged_ok(got, ref, feats, t1_rounded):
     return float(d.max()), bool(torch.isfinite(got).all()) and bool((d <= bound).all())
 
 
-CORE_KERNELS = (rc.band_tiered_kernel, rc.band_matmul_kernel)
+def call_weights(call):
+    """(Y, X) of a prepared tile or band call."""
+    return (call.geo.Y, call.geo.X) if isinstance(call, rt.TileCall) else (call.Y, call.X)
+
+
+def launch_shape_of(kernel, call) -> dict:
+    """The launch shape the kernel's C launcher picks for this call."""
+    Y, X = call_weights(call)
+    kroi = 1 if isinstance(call, rt.TileCall) else call.kroi
+    return kernel.launch_shape(Y.dtype, kroi, Y.shape[1], X.shape[2])
 
 
 def staged_bytes_host(kernel, call) -> int:
     """Bytes of the feature buffers the kernel copies into shared memory in
-    one call, counted on the host from the prepared call (not measured):
-    tile, each RoI's tier tile; packed, each real RoI's rows by its group's
-    widest tier; the staged core (tiered, matmul), as its launcher and
-    kernel choose them: for each block of A rows with a real slot, K rows
-    (matmul 64, tiered the union rounded up to 16) by the ring chunks of
-    ``stage_cols`` columns from the union's first column that some slot's
-    window touches, cut at the buffer's edge, once per block of output
-    columns. All channels."""
+    one call, counted on the host from the prepared call (not measured), as
+    the staged core's launcher and kernel choose them: for each block of A
+    rows with a real slot, K rows (the union of its slots' window rows,
+    ``rb.core_slots``, rounded up to 16, at most 64 or a tile's th) by the
+    ring chunks of ``stage_cols`` columns from the union's first column
+    that some slot's window touches, cut at the buffer's edge, once per
+    block of output columns. All channels."""
     bufs = call_buffers(call)
     C, item = bufs[0].shape[-1], bufs[0].element_size()
-    if kernel is rc.tile_kernel:
-        g = call.geo
-        return int((g.nrb.long() * rt.ROW_BLK * g.ncb.long() * rt.COL_BLK).sum()) * C * item
-    kroi, oh = call.kroi, call.Y.shape[1]
-    real = (call.dst >= 0).view(-1, kroi)
-    if kernel is rc.band_packed_kernel:
-        tier = call.ncb.long().view(-1, rb.KPACK).amax(1, keepdim=True)
-        cells = call.th * rt.COL_BLK * tier.expand(-1, rb.KPACK).reshape(-1, kroi)
-        return int(cells[real].sum()) * C * item
-    shape = kernel.launch_shape(call.Y.dtype, kroi, oh, call.tw)
-    ch, dev = shape["stage_cols"], real.device
-    matmul = kernel is rc.band_matmul_kernel
-    blk_buf = call.blk_buf.long()
+    slots = rb.core_slots(call)
+    kroi, oh = slots.kroi, call_weights(call)[0].shape[1]
+    shape = launch_shape_of(kernel, call)
+    ch = shape["stage_cols"]
+    real = (slots.dst >= 0).view(-1, kroi)
+    dev = real.device
+    blk_buf = slots.buf.view(-1, kroi)[:, 0]
     bcols = torch.tensor([b.shape[1] for b in bufs], device=dev)[blk_buf][:, None]
-    brows = torch.tensor([b.shape[0] for b in bufs], device=dev)[blk_buf]
-    c0 = call.col0.long().view(-1, kroi)
-    if matmul:
-        c0 = c0 + call.blk_po.long()[:, None]
-        width = torch.full_like(c0, call.tw)
-    else:
-        width = (call.blk_ncb.long() * rt.COL_BLK)[:, None].expand_as(c0)
-    rw0 = call.row0.long().view(-1, kroi)
+    c0, width = slots.col0.view(-1, kroi), slots.width.view(-1, kroi)
+    rw0, rows = slots.row0.view(-1, kroi), slots.rows.view(-1, kroi)
     g = torch.arange(kroi, device=dev)
     rows_per, big, total = shape["m_tiles"] * 16, 1 << 30, 0
     for mg in range(shape["m_groups"]):
@@ -490,12 +487,8 @@ def staged_bytes_host(kernel, call) -> int:
         used = diff.cumsum(1)[:, :nq] > 0
         x0 = cmin + torch.arange(nq, device=dev) * ch
         cols = torch.where(used, (bcols - x0).clamp(0, ch), 0).sum(1)
-        if matmul:
-            K = (brows - call.blk_start.long()).clamp(max=rb.BAND_ROWS)
-        else:
-            span = (torch.where(m, rw0, -big).amax(1) + call.th
-                    - torch.where(m, rw0, big).amin(1))
-            K = ((span + 15) // 16 * 16).clamp(max=rb.BAND_ROWS)
+        span = (torch.where(m, rw0 + rows, -big).amax(1) - torch.where(m, rw0, big).amin(1))
+        K = ((span + 15) // 16 * 16).clamp(max=slots.kmax)
         total += int((K * cols)[m.any(1)].sum())
     return total * shape["j_groups"] * C * item
 
@@ -559,9 +552,7 @@ def phase_staged(calls, flush, ab=None):
                                bound_ms=max(t_bytes, t_ops), bound_bytes=nbytes,
                                bound_by="bytes" if t_bytes >= t_ops else "operations",
                                staged_bytes_host=staged_bytes_host(kernel, call))
-                    if kernel in CORE_KERNELS:
-                        rec["launch_shape"] = kernel.launch_shape(dtype, call.kroi,
-                                                                  out_size[0], call.tw)
+                    rec["launch_shape"] = launch_shape_of(kernel, call)
                     rec["ab"] = []
                     for other in ab.get(kernel, ()):
                         ab_err, ab_ok = staged_ok(other(call), ref, feats, t1_rounded)
@@ -828,7 +819,7 @@ def main() -> int:
             if line.startswith("==") or "registers" in line or "spill" in line:
                 print(f"build {line.strip()}", flush=True)
         attributes = {roi_align_kernel: roi_align_kernel.attributes()}
-        attributes.update({k: k.attributes() for k in CORE_KERNELS})
+        attributes.update({k: k.attributes() for k in rc.STAGED_KERNELS})
         for k, attr in attributes.items():
             print(f"build {KERNEL_NAMES[k]} " + json.dumps(attr), flush=True)
             check(all(a["local_bytes"] == 0 for a in attr.values()),
@@ -862,7 +853,6 @@ def main() -> int:
 
     direct = kernel_record("roi_align", default_counts["roi_align"], forward)
     direct["max_abs_err"] = max(r["max_abs_err"] for r in synthetic + forward)
-    direct["attributes"] = attributes[roi_align_kernel]
     launches = {"roi_align_tile": micro["roi_align_tile"],
                 "roi_align_band_tiered": paths["band tiered"]["roi_align_band_tiered"],
                 "roi_align_band_packed": micro["roi_align_band_packed"],
@@ -872,9 +862,7 @@ def main() -> int:
                                 and r["variant"] != "matmul t1 bf16"])
         for name, n in launches.items()]
     for rec in kernels:
-        core = [k for k in CORE_KERNELS if KERNEL_NAMES[k] == rec["name"]]
-        if core:
-            rec["attributes"] = attributes[core[0]]
+        rec["attributes"] = attributes[by_name[rec["name"]]]
     print(f"clocks {clocks_line()}", flush=True)
     print(f"seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,8 +21,8 @@
 // tensor cores (bfloat16) serves every slot of the block; the union's
 // columns stream through the core's cp.async ring, and each RoI's sums stay
 // in registers until they land in its output row and orientation.
-// ops/roi_align_band.py:tiered_union_product states the zero-extended
-// product in plain PyTorch.
+// ops/roi_align_band.py:union_product states the zero-extended product in
+// plain PyTorch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (monorun_tpu_torch/ops/roi_align_cuda.py).
@@ -62,19 +62,20 @@ extern "C" int roi_align_band_tiered_forward(
   a.ow = out_w;
   a.th = th;
   a.tw = tw;
-  return ring::launch<false>(is_bf16, bufs, a, nblk, static_cast<cudaStream_t>(stream));
+  return ring::launch<ring::kBlockTier>(is_bf16, bufs, a, nblk,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 // Registers, local memory bytes and static shared memory bytes of the
 // loaded build's kernel in each dtype.
 extern "C" int roi_align_band_tiered_attributes(int is_bf16, int* regs, int* local,
                                                 int* static_smem) {
-  return ring::attributes<false>(is_bf16, regs, local, static_smem);
+  return ring::attributes<ring::kBlockTier>(is_bf16, regs, local, static_smem);
 }
 
 // The launch shape of a call into v[0..8] (see ring::shape).
 extern "C" int roi_align_band_tiered_shape(int is_bf16, int kroi, int out_h, int tw, int* v) {
-  return ring::shape<false>(is_bf16, kroi, out_h, tw, v);
+  return ring::shape<ring::kBlockTier>(is_bf16, kroi, out_h, tw, v);
 }
 
 extern "C" const char* roi_align_band_error_string(int code) {

@@ -16,76 +16,20 @@
 // the typical tier in bfloat16 with C = 256, several times the pyramid at
 // proposal scale, mostly from L2.
 //
-// Design: one block per (RoI, channel slice). The slice is 32 bytes of
-// each cell (16 bfloat16 or 8 float32 channels), the least that uses whole
-// 32-byte sectors. The block copies the RoI's tier, nrb * 16 rows x 32
-// columns at a time, into shared memory with cp.async (the counterpart of
-// the TPU's one strided DMA per RoI), then each thread owns one output
-// column j and channel c and accumulates, in float32 on CUDA cores,
-// sum_r Y[i][r] sum_w X[j][w] tile[r][w][c] into shared memory. Only the
-// tier is read: Y and X are exactly zero beyond it, so no unloaded shared
-// memory is ever multiplied (the TPU zeroes its scratch for 0 * NaN).
-// Each RoI lands in its output row and orientation directly.
+// Design: the staged core of roi_align_ring.cuh with one slot (RoI) per
+// block. The slot's window is its tier, 16 x nrb rows by 32 x ncb columns
+// at (r0, c0), so K is 16 or 32 and only the tier is read: Y and X are
+// exactly zero beyond it. The tier's columns stream through the core's
+// cp.async ring (the counterpart of the TPU's one strided copy per RoI),
+// 4 stages of 32 rows of 512 bytes; the row product runs on
+// tensor cores (bfloat16) with A = the RoI's Y in registers, one m-tile of
+// 16 rows (7 or 14 used) and 64-channel slices; t1 and the sums stay in
+// registers, and each RoI lands in its own output row and orientation.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (monorun_tpu_torch/ops/roi_align_cuda.py).
 
-#include "roi_align_staged.cuh"
-
-namespace {
-
-using namespace staged;
-
-constexpr int kThreads = 128;
-
-struct TileArgs {
-  const int* buf_id;
-  const int* r0;
-  const int* c0;
-  const int* nrb;
-  const int* ncb;
-  const int* trans;
-  const void* Y;   // (n, oh, th)
-  const void* X;   // (n, ow, tw)
-  void* out;       // (n, oh, ow, C)
-  int channels, cs, oh, ow, th, tw;
-};
-
-size_t tile_smem(int cs, int elt, const TileArgs& a) {
-  return align16((size_t)a.th * kColBlk * cs * elt) + (size_t)a.ow * a.oh * cs * 4;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) roi_align_tile_kernel(Buffers bufs, TileArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int cs = a.cs, oh = a.oh, ow = a.ow;
-  T* s = reinterpret_cast<T*>(smem);
-  float* acc = reinterpret_cast<float*>(smem + align16((size_t)a.th * kColBlk * cs * sizeof(T)));
-  const long long n = blockIdx.x;
-  const int cs0 = blockIdx.y * cs;
-  const int b = a.buf_id[n], r0 = a.r0[n], c0 = a.c0[n];
-  const int nrb = a.nrb[n], ncb = a.ncb[n];
-  const T* buf = static_cast<const T*>(bufs.ptr[b]);
-  const T* Y = static_cast<const T*>(a.Y) + n * oh * a.th;
-  const T* X = static_cast<const T*>(a.X) + n * ow * a.tw;
-
-  zero_shared(acc, ow * oh * cs);
-  for (int cb = 0; cb < ncb; ++cb) {
-    const int x0 = c0 + cb * kColBlk;
-    stage_window(s, kColBlk, buf, bufs.cols[b], a.channels, r0, nrb * kRowBlk, x0, kColBlk,
-                 cs0, cs);
-    cp_async_wait_all();
-    __syncthreads();
-    for (int t = threadIdx.x; t < ow * cs; t += blockDim.x) {
-      accumulate_rows(acc, s, r0, x0, kColBlk, cs, t % cs, t / cs, Y, a.th, r0, nrb, X, a.tw,
-                      c0, x0, x0 + kColBlk, oh);
-    }
-    __syncthreads();
-  }
-  write_roi(static_cast<T*>(a.out), acc, n, a.trans[n], a.channels, cs0, cs, oh, ow);
-}
-
-}  // namespace
+#include "roi_align_ring.cuh"
 
 // Tile align of n RoIs. Buffers: pointers, rows and columns of each level
 // buffer. Per RoI (device int32 arrays): buffer, first row, first column
@@ -99,22 +43,40 @@ extern "C" int roi_align_tile_forward(int is_bf16, const void* const* buf_ptrs,
                                       const void* Y, const void* X, void* out, int n,
                                       int channels, int out_h, int out_w, int th, int tw,
                                       void* stream) {
-  Buffers bufs{};
-  int rc = make_buffers(&bufs, buf_ptrs, buf_rows, buf_cols, nbufs);
+  staged::Buffers bufs{};
+  int rc = staged::make_buffers(&bufs, buf_ptrs, buf_rows, buf_cols, nbufs);
   if (rc) return rc;
-  if (n <= 0 || th > 32 || th % kRowBlk || tw % kColBlk || out_h != out_w) {
+  if (n <= 0 || th > 32 || th % staged::kRowBlk || tw % staged::kColBlk || out_h != out_w) {
     return (int)cudaErrorInvalidValue;
   }
-  TileArgs a{buf_id, r0, c0, nrb, ncb, trans, Y, X, out, channels, 0, out_h, out_w, th, tw};
-  const int elt = is_bf16 ? 2 : 4;
-  a.cs = pick_slice(channels, elt, [&](int cs) { return tile_smem(cs, elt, a); });
-  if (!a.cs) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)n, (unsigned)(channels / a.cs));
-  const size_t smem = tile_smem(a.cs, elt, a);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch(roi_align_tile_kernel<__nv_bfloat16>, grid, dim3(kThreads), smem, s,
-                          bufs, a)
-                 : launch(roi_align_tile_kernel<float>, grid, dim3(kThreads), smem, s, bufs, a);
+  ring::Work a{};
+  a.c0 = c0;
+  a.rw0 = r0;
+  a.nrb = nrb;
+  a.ncb = ncb;
+  a.trans = trans;
+  a.blk_buf = buf_id;  // one slot per block
+  a.Y = Y;
+  a.X = X;
+  a.out = out;
+  a.kroi = 1;
+  a.channels = channels;
+  a.oh = out_h;
+  a.ow = out_w;
+  a.th = th;
+  a.tw = tw;
+  return ring::launch<ring::kTile>(is_bf16, bufs, a, n, static_cast<cudaStream_t>(stream));
+}
+
+// Registers, local memory bytes and static shared memory bytes of the
+// loaded build's kernel in each dtype.
+extern "C" int roi_align_tile_attributes(int is_bf16, int* regs, int* local, int* static_smem) {
+  return ring::attributes<ring::kTile>(is_bf16, regs, local, static_smem);
+}
+
+// The launch shape of a call into v[0..8] (see ring::shape); kroi is 1.
+extern "C" int roi_align_tile_shape(int is_bf16, int kroi, int out_h, int tw, int* v) {
+  return ring::shape<ring::kTile>(is_bf16, kroi, out_h, tw, v);
 }
 
 extern "C" const char* roi_align_tile_error_string(int code) {

@@ -9,12 +9,13 @@ one band; the padding slots are dummies with zero weights. Variants:
 
 * ``tiered``: buckets by (band, column tier), so each block is
   tier-uniform. Kernel ``csrc/roi_align_band.cu`` (port of
-  ``roi_align_band.py:142 _band_kernel_tiered``): each block stages its
-  band window once and serves its RoIs from it.
-* ``packed``: orders each band by tier and computes the row product of
-  4 RoIs at a time as one product of a block-diagonal Y4 with the 4
-  windows stacked along K. Kernel ``csrc/roi_align_mma.cu``
-  (``roi_align_band.py:330 _band_kernel_packed``), on tensor cores.
+  ``roi_align_band.py:142 _band_kernel_tiered``): each block stages the
+  union of its RoIs' windows once and serves its RoIs from it.
+* ``packed``: orders each band by tier; the TPU kernel computes the row
+  product of 4 RoIs at a time as one product of a block-diagonal Y4 with
+  the 4 windows stacked along K. Kernel ``csrc/roi_align_mma.cu``
+  (``roi_align_band.py:330 _band_kernel_packed``): a block of ``kroi``
+  RoIs of one band, each at its own tier.
 * ``matmul``: buckets by (band, column panel of ``2 Tw``) and builds Y
   over the whole 64-row band, so a block's row product is one
   (kroi*oh, 64) @ panel product. Kernel ``csrc/roi_align_mma.cu``
@@ -23,6 +24,10 @@ one band; the padding slots are dummies with zero weights. Variants:
 * none of these: the plain band sweep, whose TPU kernel
   (``_band_kernel``) the direct kernel ``csrc/roi_align.cu`` replaces;
   on CUDA it runs that kernel.
+
+The tiered, packed and matmul kernels, and the tile kernel, run one staged
+core (``csrc/roi_align_ring.cuh``); ``union_product`` states its
+arithmetic in plain PyTorch.
 
 The slotting uses scatter-add histograms, ``searchsorted`` and scatters
 (the JAX package avoids them on the TPU) and gives the same slots. The slot count
@@ -40,8 +45,8 @@ import torch
 
 from .roi_align import axis_interp_matrix
 from .roi_align_tile import (
-    COL_BLK, MAX_TH, MAX_TW, FlatPyramid, prepare_flat_pyramid, roi_tile_geometry,
-    staged_align_plain,
+    COL_BLK, MAX_TH, MAX_TW, ROW_BLK, FlatPyramid, TileCall, prepare_flat_pyramid,
+    roi_tile_geometry, staged_align_plain,
 )
 
 Tensor = torch.Tensor
@@ -241,39 +246,98 @@ def band_call_plain(call: BandCall) -> Tensor:
                               call.trans, call.dst, call.n, call.t1_dtype)
 
 
-def tiered_union_product(call: BandCall) -> Tensor:
-    """The tiered kernel's arithmetic (``csrc/roi_align_band.cu`` on the
-    staged core ``csrc/roi_align_ring.cuh``) in plain PyTorch, float32.
+class CoreSlots(NamedTuple):
+    """The slots of a staged call as the staged core
+    (``csrc/roi_align_ring.cuh``) sees them: blocks of ``kroi`` slots, and
+    per slot (m_pad,) its buffer and its window, rows ``[row0, row0 +
+    rows)`` by columns ``[col0, col0 + width)``."""
 
-    Per block, A stacks its real slots' (oh, th) Y matrices zero-extended
+    kroi: int
+    kmax: int          # most rows a block stages: 64, or a tile's th
+    buf: Tensor
+    row0: Tensor
+    rows: Tensor
+    col0: Tensor
+    width: Tensor
+    dst: Tensor        # output row, -1 for dummies
+
+
+def core_slots(call) -> CoreSlots:
+    """The core's slot windows of a prepared tile call (one slot per block,
+    its tier) or band call: matmul, the band by the panel; tiered, ``th``
+    rows by the block's tier; packed, ``th`` rows by the slot's own tier."""
+    if isinstance(call, TileCall):
+        g = call.geo
+        return CoreSlots(1, g.Y.shape[2], g.buf_id.long(), g.r0.long(),
+                         g.nrb.long() * ROW_BLK, g.c0.long(), g.ncb.long() * COL_BLK,
+                         torch.arange(call.n, device=g.Y.device))
+    kroi = call.kroi
+
+    def per_slot(blk_values: Tensor) -> Tensor:
+        return blk_values.long().repeat_interleave(kroi)
+
+    row0, col0 = call.row0.long(), call.col0.long()
+    rows = torch.full_like(row0, call.th)
+    if call.mode == "matmul":
+        row0, col0 = per_slot(call.blk_start), col0 + per_slot(call.blk_po)
+        width = torch.full_like(col0, call.tw)
+    elif call.mode == "tiered":
+        width = per_slot(call.blk_ncb) * COL_BLK
+    elif call.mode == "packed":
+        width = call.ncb.long() * COL_BLK
+    else:
+        raise ValueError("the plain band sweep does not run the staged core")
+    return CoreSlots(kroi, BAND_ROWS, per_slot(call.blk_buf), row0, rows, col0, width,
+                     call.dst.long())
+
+
+def union_product(call) -> Tensor:
+    """The staged core's arithmetic (``csrc/roi_align_ring.cuh``, which the
+    tile, tiered, packed and matmul kernels run) in plain PyTorch, float32.
+
+    Per block, A stacks its real slots' (oh, rows) Y matrices zero-extended
     over the union of their window rows: K rows (the union rounded up to
-    16, at most 64) from ``r0 = min(union start, buffer rows - K)``, exact
-    zeros outside each slot's th rows. One row product ``A @ window`` over
-    the union's rows and columns serves every slot; each slot then takes
-    its own ``32 * tier`` columns and X. Same function as
-    ``band_call_plain``."""
-    kroi, th = call.kroi, call.th
-    oh, C = call.Y.shape[1], call.bufs[0].shape[-1]
-    out = torch.zeros((call.n, oh, oh, C), dtype=call.bufs[0].dtype, device=call.Y.device)
-    dst = call.dst.view(-1, kroi)
+    16, at most ``kmax``) from ``r0 = min(union start, buffer rows - K)``,
+    exact zeros outside each slot's rows. One row product ``A @ window``
+    over the union's rows and columns serves every slot; each slot then
+    takes only its own columns and X (X is zero past a slot's window, so a
+    packed slot narrower than its group gives the TPU kernel's sums at the
+    group's widest tier). Same function as ``band_call_plain`` /
+    ``tile_call_plain``."""
+    s = core_slots(call)
+    tile = isinstance(call, TileCall)
+    bufs = call.pyramid.bufs if tile else call.bufs
+    Y, X = (call.geo.Y, call.geo.X) if tile else (call.Y, call.X)
+    trans = call.geo.tmask if tile else call.trans
+    t1_dtype = None if tile else call.t1_dtype
+    oh, th, C = Y.shape[1], Y.shape[2], bufs[0].shape[-1]
+    out = torch.zeros((call.n, oh, oh, C), dtype=bufs[0].dtype, device=Y.device)
+    dst = s.dst.view(-1, s.kroi)
     for blk in (dst >= 0).any(1).nonzero().flatten().tolist():
-        slots = blk * kroi + (dst[blk] >= 0).nonzero().flatten()
-        buf = call.bufs[int(call.blk_buf[blk])]
-        rw0, c0 = call.row0[slots].long(), call.col0[slots].long()
-        width = int(call.blk_ncb[blk]) * COL_BLK
-        rmin, rmax = int(rw0.min()), int(rw0.max()) + th
-        K = min(BAND_ROWS, -(-(rmax - rmin) // 16) * 16)
+        slots = blk * s.kroi + (dst[blk] >= 0).nonzero().flatten()
+        buf = bufs[int(s.buf[slots[0]])]
+        rw0, rows, c0, width = s.row0[slots], s.rows[slots], s.col0[slots], s.width[slots]
+        rmin, rmax = int(rw0.min()), int((rw0 + rows).max())
+        K = min(s.kmax, -(-(rmax - rmin) // 16) * 16)
         r0 = max(0, min(rmin, buf.shape[0] - K))
-        cmin, cmax = int(c0.min()), int(c0.max()) + width
-        rows = (rw0 - r0)[:, None] + torch.arange(th, device=rw0.device)   # (s, th)
-        A = call.Y.new_zeros((slots.numel(), oh, K), dtype=torch.float32)
-        A.scatter_(2, rows[:, None, :].expand(-1, oh, -1), call.Y[slots].float())
+        cmin, cmax = int(c0.min()), int((c0 + width).max())
+        # A[slot, i, k]: Y's column k - (rw0 - r0) inside the slot's rows, else 0
+        src = torch.arange(K, device=rw0.device) - (rw0 - r0)[:, None]        # (s, K)
+        inside = (src >= 0) & (src < rows[:, None])
+        A = Y[slots].float().gather(2, src.clamp(0, th - 1)[:, None, :].expand(-1, oh, -1))
+        A = torch.where(inside[:, None, :], A, 0.0)
         t1 = torch.einsum("sik,kwc->siwc", A, buf[r0:r0 + K, cmin:cmax].float())
-        cols = (c0 - cmin)[:, None] + torch.arange(width, device=c0.device)  # (s, width)
+        Xs = X[slots].float()
+        if t1_dtype is not None:
+            t1, Xs = t1.to(t1_dtype).float(), X[slots].to(t1_dtype).float()
+        W = int(width.max())
+        w = torch.arange(W, device=c0.device)
+        cols = ((c0 - cmin)[:, None] + w).clamp(max=cmax - cmin - 1)          # (s, W)
         t1 = t1.gather(2, cols[:, None, :, None].expand(-1, oh, -1, C))
-        res = torch.einsum("sjw,siwc->sijc", call.X[slots, :, :width].float(), t1)
-        res = torch.where(call.trans[slots].bool()[:, None, None, None], res.transpose(1, 2), res)
-        out[call.dst[slots].long()] = res.to(out.dtype)
+        Xs = torch.where((w < width[:, None])[:, None, :], Xs[:, :, :W], 0.0)   # own columns
+        res = torch.einsum("sjw,siwc->sijc", Xs, t1)
+        res = torch.where(trans[slots].bool()[:, None, None, None], res.transpose(1, 2), res)
+        out[s.dst[slots]] = res.to(out.dtype)
     return out
 
 

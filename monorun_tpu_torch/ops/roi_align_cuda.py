@@ -17,12 +17,13 @@ Kernels, each with a ``launches`` count (one per call that launches it):
 * ``band_tiered_kernel`` (``csrc/roi_align_band.cu``): tier-uniform band
   blocks;
 * ``band_packed_kernel`` and ``band_matmul_kernel``
-  (``csrc/roi_align_mma.cu``): row products on tensor cores.
+  (``csrc/roi_align_mma.cu``): band blocks with per-RoI tiers, and whole
+  band panels.
 
-The tiered and matmul kernels share the staged core
-``csrc/roi_align_ring.cuh``; their wrappers also report the loaded build's
-attributes and a call's launch shape. ``StagedKernel.with_source`` binds
-another build of a staged kernel's C interface, for an A/B.
+The four staged kernels run one staged core, ``csrc/roi_align_ring.cuh``
+(row products on tensor cores); their wrappers also report the loaded
+build's attributes and a call's launch shape. ``StagedKernel.with_source``
+binds another build of a staged kernel's C interface, for an A/B.
 """
 
 from __future__ import annotations
@@ -341,8 +342,8 @@ class StagedKernel:
         return self._fn
 
     def _entry(self, suffix: str):
-        """The C entry ``<symbol without _forward>_<suffix>`` (the staged
-        core's kernels export ``attributes`` and ``shape``)."""
+        """The C entry ``<symbol without _forward>_<suffix>`` (every staged
+        kernel exports ``attributes`` and ``shape``)."""
         self._bind()
         return getattr(self._load(), self.symbol.removesuffix("_forward") + "_" + suffix)
 
@@ -367,10 +368,11 @@ class StagedKernel:
 
     def launch_shape(self, dtype: torch.dtype, kroi: int, out_size: int,
                      tw: int) -> Dict[str, int]:
-        """The launch shape the C launcher picks for a call: channels per
-        block, columns per ring stage, m-tiles per block, blocks along A's
-        rows and along the output columns per kroi-block, slots per block,
-        dynamic shared memory bytes, threads, and resident blocks per SM
+        """The launch shape the C launcher picks for a call (the tile
+        kernel's ``kroi`` is 1): channels per block, columns per ring
+        stage, m-tiles per block, blocks along A's rows and along the
+        output columns per kroi-block, slots per block, dynamic shared
+        memory bytes, threads, and resident blocks per SM
         (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
         fn = self._entry("shape")
         fn.argtypes = [_I] * 4 + [ctypes.POINTER(_I)]

@@ -350,15 +350,22 @@ def test_staged_wrapper_refuses_cpu_tensors():
     assert kernel.launches == 0 and kernel._fn is None
 
 
-# ---- the staged core (csrc/roi_align_ring.cuh): band tiered and band matmul --
+# ---- the staged core (csrc/roi_align_ring.cuh): band tiered, packed, matmul --
 
 CORE_VARIANTS = {
     "tiered": (rc.band_tiered_kernel, dict(tiered=True)),
+    "packed": (rc.band_packed_kernel, dict(packed=True)),
     "matmul": (rc.band_matmul_kernel, dict(matmul=True)),
     "matmul_t1_bf16": (rc.band_matmul_kernel, dict(matmul=True, t1_dtype=torch.bfloat16)),
 }
 LAZY_SLIVERS = np.array([[0, 10.0, 50.0, 480.0, 60.0], [1, 20.0, 30.0, 420.0, 42.0]],
                         np.float32)
+# two narrow and two wide RoIs in one band of level 0: a packed group of
+# tiers 1, 1, 3, 3, whose narrow slots take only their own 32 columns; and
+# a tall RoI elsewhere
+MIXED_TIERS = np.array([[0, 20.0, 40.0, 40.0, 46.0], [0, 50.0, 42.0, 62.0, 47.0],
+                        [0, 100.0, 40.0, 390.0, 44.0], [0, 120.0, 41.0, 400.0, 45.0],
+                        [1, 10.0, 10.0, 16.0, 70.0]], np.float32)
 # name -> pyramid (H, W, C), RoIs (n, largest side, extra), out size, finest, kroi
 CORE_CASES = {
     # 120 small RoIs at level 0: blocks of 16 whose windows span the band
@@ -373,6 +380,8 @@ CORE_CASES = {
     # lazy-level slivers that overrun the 96-column window (kernel == plain)
     "slivers": dict(H=128, W=512, C=32, n=8, side=60.0, out=7, finest=20.0, kroi=4,
                     extra=LAZY_SLIVERS),
+    "mixed_tiers": dict(H=128, W=512, C=32, n=0, side=60.0, out=7, finest=20.0, kroi=4,
+                        extra=MIXED_TIERS),
 }
 
 
@@ -402,7 +411,10 @@ def _core_case_holds(case, call):
         assert not bool(call.blk_act.bool().all())
     trans = call.trans[call.dst >= 0]
     assert trans.any() and not trans.all()
-    if case == "full_band" and call.mode == "tiered":
+    if case == "mixed_tiers" and call.mode == "packed":
+        tiers = call.ncb.view(-1, 4)[(call.dst.view(-1, 4) >= 0).all(1)]
+        assert ((tiers.amin(1) == 1) & (tiers.amax(1) == 3)).any()
+    if case == "full_band" and call.mode in ("tiered", "packed"):
         rw0 = call.row0.view(-1, call.kroi)
         assert max(int(r[m].max() - r[m].min()) for r, m in zip(rw0, real) if m.any()) \
             + call.th > 48          # K = 64: the whole band
@@ -414,19 +426,23 @@ def _core_case_holds(case, call):
 
 @pytest.mark.parametrize("case", list(CORE_CASES))
 def test_core_cases_hold_on_cpu(case):
-    """Each edge case reaches its edge; on the CPU the tiered core's
-    zero-extended product (``tiered_union_product``) matches the tiered
-    plain version, and the tiered and matmul plain versions agree with the
-    gather version on every RoI whose window holds all its taps."""
+    """Each edge case reaches its edge; on the CPU the core's zero-extended
+    product (``union_product``) matches the tiered, packed and matmul plain
+    versions (matmul also with its row product in bfloat16), and the tiered
+    and matmul plain versions agree with the gather version on every RoI
+    whose window holds all its taps."""
     p = CORE_CASES[case]
     out = (p["out"],) * 2
+    for variant in ("packed", "matmul_t1_bf16"):
+        _, _, call = _core_call(case, variant, "cpu", torch.float32)
+        _core_case_holds(case, call)
+        torch.testing.assert_close(rb.union_product(call), rb.band_call_plain(call),
+                                   rtol=1e-5, atol=5e-5)
     for variant in ("tiered", "matmul"):
         feats, rois, call = _core_call(case, variant, "cpu", torch.float32)
         _core_case_holds(case, call)
         plain = rb.band_call_plain(call)
-        if variant == "tiered":
-            torch.testing.assert_close(rb.tiered_union_product(call), plain,
-                                       rtol=1e-5, atol=5e-5)
+        torch.testing.assert_close(rb.union_product(call), plain, rtol=1e-5, atol=5e-5)
         rois = torch.from_numpy(rois)
         gather = ra.multilevel_roi_align(feats, rois, STRIDES, out, p["finest"], max_ratio=6,
                                          long_span_cap=ra.LONG_SPAN_CAP)
@@ -450,12 +466,15 @@ def test_core_kernels_match_plain_on_edges(cuda_device, variant, dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("variant", ["tiered", "matmul"])
+@pytest.mark.parametrize("variant", ["tiered", "matmul", "packed", "tile"])
 def test_core_kernels_take_no_rois(cuda_device, variant, dtype):
     feats = _pyramid(cuda_device, dtype)
-    kernel, kw = CORE_VARIANTS[variant]
-    call = rb.prepare_band_call(feats, torch.zeros(0, 5, device=cuda_device), STRIDES,
-                                (7, 7), 10.0, 3, kroi=4, **kw)
+    rois = torch.zeros(0, 5, device=cuda_device)
+    if variant == "tile":
+        kernel, call = rc.tile_kernel, rt.prepare_tile_call(feats, rois, STRIDES, (7, 7), 10.0, 3)
+    else:
+        kernel, kw = CORE_VARIANTS[variant]
+        call = rb.prepare_band_call(feats, rois, STRIDES, (7, 7), 10.0, 3, kroi=4, **kw)
     before = kernel.launches
     got = kernel(call)
     torch.cuda.synchronize()
@@ -463,23 +482,97 @@ def test_core_kernels_take_no_rois(cuda_device, variant, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["tiered", "matmul"])
+@pytest.mark.parametrize("variant", ["tiered", "matmul", "packed", "tile"])
 def test_core_kernels_keep_sums_in_registers(cuda_device, variant):
     """No local memory in either dtype, at most 128 registers (2 blocks
     of 8 warps per SM), and channel slices of at least
     16 with at least 2 resident blocks per SM at the serving shapes (7x7
     and 14x14, bfloat16 and float32). A block takes 8 output columns, and
     16 in float32 when the output is wider, so float32 14x14 computes its
-    row product once."""
-    kernel = CORE_VARIANTS[variant][0]
+    row product once. A tile block holds one RoI: one m-tile, 64 channels."""
+    kernel = rc.tile_kernel if variant == "tile" else CORE_VARIANTS[variant][0]
     attributes = kernel.attributes()
     assert set(attributes) == {"bfloat16", "float32"}
     for a in attributes.values():
         assert a["local_bytes"] == 0 and 0 < a["registers"] <= 128
-    kroi = 4 if variant == "tiered" else 16
+    kroi = {"tiered": 4, "packed": 4, "matmul": 16, "tile": 1}[variant]
     for dtype in (torch.bfloat16, torch.float32):
         for out in (7, 14):
             shape = kernel.launch_shape(dtype, kroi, out, 96)
             assert shape["channels"] >= 16 and shape["blocks_per_sm"] >= 2, shape
             assert shape["threads"] == 256
             assert shape["j_groups"] == (2 if out == 14 and dtype == torch.bfloat16 else 1)
+            if variant == "tile":
+                assert shape["m_tiles"] == 1 and shape["channels"] == 64, shape
+
+
+# ---- the tile kernel on the staged core, one RoI per block --------------------
+
+# tall and wide RoIs on the last rows of image 1 (the last rows of the
+# row-major level-0 buffer) and on the last columns of a 128-column level
+EDGE_TILES = np.array([[1, 40.0, 121.0, 70.0, 128.0], [1, 200.0, 118.0, 215.0, 128.0],
+                       [0, 480.0, 10.0, 512.0, 20.0], [1, 470.0, 60.0, 512.0, 66.0],
+                       [1, 505.0, 30.0, 512.0, 90.0], [0, 130.0, 2.0, 138.0, 60.0]],
+                      np.float32)
+# name -> pyramid (H, W, C), RoIs (n, largest side, extra), out size, finest
+TILE_CASES = {
+    # levels 48x160 .. 12x40 and boxes up to 600 pixels: nrb 1-2, ncb 1-3
+    "tiers": dict(H=192, W=640, C=32, n=60, side=600.0, out=7, finest=10.0),
+    "edges": dict(H=128, W=512, C=32, n=8, side=60.0, out=14, finest=20.0, extra=EDGE_TILES),
+    "c64": dict(H=64, W=128, C=64, n=40, side=60.0, out=7, finest=10.0),
+    "c128": dict(H=64, W=128, C=128, n=40, side=60.0, out=14, finest=14.0),
+    # lazy-level slivers that overrun the 96-column window (kernel == plain)
+    "slivers": dict(H=128, W=512, C=32, n=8, side=60.0, out=7, finest=20.0,
+                    extra=LAZY_SLIVERS),
+}
+
+
+def _tile_call(case, device, dtype):
+    p = TILE_CASES[case]
+    feats = _pyramid(device, dtype, H=p["H"], W=p["W"], C=p["C"], seed=4)
+    rng = np.random.default_rng(4)
+    n, H, W = p["n"], p["H"], p["W"]
+    x1, y1 = rng.uniform(0, W - 4, n), rng.uniform(0, H - 4, n)
+    rois = np.stack([rng.integers(0, 2, n), x1, y1,
+                     np.clip(x1 + rng.uniform(1, p["side"], n), None, W),
+                     np.clip(y1 + rng.uniform(1, p["side"] / 2, n), None, H)], 1)
+    rois = np.concatenate([rois.astype(np.float32), p.get("extra", SPECIAL[:0])])
+    call = rt.prepare_tile_call(feats, torch.from_numpy(rois).to(device), STRIDES,
+                                (p["out"],) * 2, p["finest"], 6)
+    return feats, call
+
+
+def _tile_case_holds(case, call):
+    """The edge each case is there for, and RoIs in both orientations."""
+    g = call.geo
+    assert g.tmask.any() and not g.tmask.all()
+    if case == "tiers":
+        assert set(g.nrb.tolist()) == {1, 2} and set(g.ncb.tolist()) == {1, 2, 3}
+    if case == "edges":
+        bufs = call.pyramid.bufs
+        rows = torch.tensor([bufs[int(b)].shape[0] for b in g.buf_id])
+        cols = torch.tensor([bufs[int(b)].shape[1] for b in g.buf_id])
+        assert (g.r0.cpu() + 16 * g.nrb.cpu() == rows).any()
+        assert (g.c0.cpu() + 32 * g.ncb.cpu() == cols).any()
+    if case == "slivers":
+        assert int((~g.fits).sum()) == 2
+
+
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_tile_cases_hold_on_cpu(case):
+    """Each tile edge case reaches its edge; on the CPU the core's product
+    with one RoI per block (``union_product``: the RoI's 16 x nrb rows by
+    32 x ncb columns) matches the tile plain version."""
+    _, call = _tile_call(case, "cpu", torch.float32)
+    _tile_case_holds(case, call)
+    torch.testing.assert_close(rb.union_product(call), rt.tile_call_plain(call),
+                               rtol=1e-5, atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TILE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_kernel_matches_plain_on_edges(cuda_device, dtype, case):
+    feats, call = _tile_call(case, cuda_device, dtype)
+    _tile_case_holds(case, call)
+    _check_staged(rc.tile_kernel, call, rt.tile_call_plain(call), feats)

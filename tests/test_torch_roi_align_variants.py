@@ -155,7 +155,8 @@ def test_packed_needs_whole_groups():
 @pytest.mark.parametrize("variant", ["tile", "plain", "tiered", "packed", "matmul"])
 def test_plain_versions_match_pallas_kernels(variant):
     """Each staged kernel's plain version on the port's slots against the
-    JAX Pallas kernel in interpret mode and the JAX gather oracle."""
+    JAX Pallas kernel in interpret mode and the JAX gather oracle; the
+    staged core's product (``union_product``) against the Pallas kernel."""
     feats, rois = _pyramid(), _rois()
     out_size, finest, max_ratio = (7, 7), 10.0, 3
     if variant == "tile":
@@ -181,6 +182,9 @@ def test_plain_versions_match_pallas_kernels(variant):
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, np.asarray(ref), **TOL)
     np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+    if variant != "plain":
+        # the staged core's product (csrc/roi_align_ring.cuh) on the same slots
+        np.testing.assert_allclose(tband.union_product(call).numpy(), np.asarray(ref), **TOL)
 
 
 @pytest.mark.parametrize("out_size,finest,max_ratio", CASES)
@@ -308,19 +312,46 @@ def test_lazy_level_slivers_overrun_the_tile():
 
 @pytest.mark.parametrize("out_size,finest,max_ratio", CASES)
 def test_tiered_union_product_matches_plain_and_pallas(out_size, finest, max_ratio):
-    """The tiered core's zero-extended union-row product, stated in plain
-    PyTorch, against the plain version on the same slots and the JAX
-    tiered Pallas kernel in interpret mode; its blocks reach past one
-    slot's rows, so the zero extension is exercised."""
+    """The staged core's zero-extended union-row product (``union_product``)
+    on a tiered call, stated in plain PyTorch, against the plain version on
+    the same slots and the JAX tiered Pallas kernel in interpret mode; its
+    blocks reach past one slot's rows, so the zero extension is exercised."""
     feats, rois = _pyramid(), _rois()
     call = tband.prepare_band_call(_t(feats), torch.from_numpy(rois), STRIDES, out_size,
                                    finest, max_ratio, kroi=4, tiered=True)
     real = call.dst.view(-1, 4) >= 0
     rw0 = call.row0.view(-1, 4)
     assert max(int(r[m].max() - r[m].min()) for r, m in zip(rw0, real) if m.any()) > 0
-    got = tband.tiered_union_product(call).numpy()
+    got = tband.union_product(call).numpy()
     np.testing.assert_allclose(got, tband.band_call_plain(call).numpy(), **TOL)
     with _interpret(jband):
         ref = jband.multilevel_roi_align_band(_j(feats), jnp.asarray(rois), STRIDES, out_size,
                                               finest, max_ratio=max_ratio, kroi=4, tiered=True)
     np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+
+
+# two narrow and two wide RoIs in one band of level 0 (a packed group of
+# tiers 1, 1, 3, 3) and a tall RoI, on one 128x512 image
+MIXED_TIERS = np.array([[0, 20.0, 40.0, 40.0, 46.0], [0, 50.0, 42.0, 62.0, 47.0],
+                        [0, 100.0, 40.0, 390.0, 44.0], [0, 120.0, 41.0, 400.0, 45.0],
+                        [0, 450.0, 10.0, 456.0, 70.0]], np.float32)
+
+
+def test_packed_union_product_takes_each_slots_own_tier():
+    """The staged core's product with per-slot windows (``union_product``)
+    on a packed group of tiers 1, 1, 3, 3: each slot takes its own tier,
+    where the JAX packed kernel computes the group at its widest (the
+    plain version's whole window, held to that kernel in
+    ``test_plain_versions_match_pallas_kernels``). Against the plain
+    version on the same slots and the gather version."""
+    strides = (4, 4, 8, 16)      # the lazy lower level
+    feats = _t(_pyramid(B=1, H=128, W=512, strides=strides))
+    rois = torch.from_numpy(MIXED_TIERS)
+    args = (strides, (7, 7), 20.0)
+    call = tband.prepare_band_call(feats, rois, *args, 6, kroi=4, packed=True)
+    groups = call.ncb.view(-1, 4)[(call.dst.view(-1, 4) >= 0).all(1)]
+    assert ((groups.amin(1) == 1) & (groups.amax(1) == 3)).any()
+    got = tband.union_product(call)
+    torch.testing.assert_close(got, tband.band_call_plain(call), **TOL)
+    gather = tra.multilevel_roi_align(feats, rois, *args, max_ratio=6, long_span_cap=CAP)
+    torch.testing.assert_close(got, gather, **TOL)
