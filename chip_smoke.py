@@ -21,7 +21,9 @@ Phases, each printing its own lines:
 
 1. the card's name and power limit, as nvidia-smi gives them;
 2. the build of every hand-written CUDA RoIAlign kernel
-   (``monorun_tpu_torch/csrc/*.cu``, one nvcc per source, in parallel);
+   (``monorun_tpu_torch/csrc/*.cu``, one nvcc per source, in parallel),
+   and the global atomics in the backward's SASS (``cuobjdump -sass``):
+   the run fails unless each is a vector reduction of 4 float32;
 3. the direct kernel (``csrc/roi_align.cu``) against its plain PyTorch
    version on a kitti_multiclass-sized pyramid (batch 8, C=256, levels
    96x320, 96x320, 48x160, 24x80, 12x40) at the three main-path shapes,
@@ -56,14 +58,37 @@ Phases, each printing its own lines:
    the launches of every kernel per forward, ms per batch;
 8. the align micro-bench's A/B (``monorun_tpu_torch.tools.micro_bench``
    ``align48``), the path that reaches the tile and packed kernels;
-9. a ``kernels`` JSON line (the registers and local memory bytes per
-   thread and dtype of the direct kernel and of the four staged kernels,
-   as the loaded build reports them, among their keys; local memory, a
-   spill, fails the run) and, last, the JSON result line.
+9. the direct kernel's backward (``csrc/roi_align_bwd.cu``) against the
+   plain version's autograd on the batch-8 pyramid of phase 3 at the
+   training step's three shapes (1536 sampled RoIs at 7x7, 384 positives
+   at 7x7 and 14x14), in bfloat16 and float32, both outputs (the level
+   and the RoI gradients), with the kernel's time, its bound and share of
+   the bound, the plain version's time and an empty launch's time;
+10. training kitti_multiclass at full width (batch samples_per_device=3,
+   384x1280, bfloat16 compute, seeded random weights, a seeded
+   ``synthetic_train_batch``) through ``create_train_state`` ->
+   ``train_step``: 3 AdamW steps, every loss present and finite, no
+   non-finite gradient leaf, frozen parameters fixed and trainable ones
+   moved, exactly 3 forward and 3 backward launches of the direct kernels
+   per step and none of a staged kernel, each of the first step's three
+   aligns (1536 sampled RoIs and 384 positives, bfloat16) against the plain
+   version on its own features and RoIs, the backward re-run on the
+   step's own features, RoIs and output gradients through the kernel and
+   the plain version (with times as in phase 9), ms per step (median over
+   the steps after the first) and peak memory;
+11. a tiny float32 training step on the GPU (kernels) and on the CPU
+   (plain version) with the same weights and batch, and the draws of one
+   seeded CPU generator (``utils/draws.py``): every
+   loss and every parameter's gradient compared, and the share of
+   rpn_reg's gradient that comes by the proposals (the RoI path);
+12. a ``kernels`` JSON line (the registers and local memory bytes per
+   thread and dtype of the direct kernel, its backward and the four
+   staged kernels, as the loaded build reports them, among their keys;
+   local memory, a spill, fails the run) and, last, the JSON result line.
 
-Every path (phases 4, 7 and 8) runs with all launch counts set to 0 just
-before it and read just after; a kernel that its path did not launch fails
-the run.
+Every path (phases 4, 7, 8 and 10) runs with all launch counts set to 0
+just before it and read just after; a kernel that its path did not launch
+fails the run.
 
 Tolerances (kernel against plain version; both accumulate in float32):
 bfloat16 |d| <= 2^-7 |ref| + 1e-5 max(1, max|ref|), one bfloat16 rounding
@@ -74,12 +99,33 @@ kernels' gap to the gather version in bfloat16 (their interpolation
 weights are rounded to bfloat16, and each axis's weights sum to at most
 1): |d| <= 2^-7 max|x| + 2^-7 |ref|.
 
+The backward kernel against the plain version's autograd in float32 on
+the same (upcast) inputs and output gradient, rounded once to the level's
+dtype: level gradients |d| <= r |ref| + 1e-5 max|ref|, r = 1e-5 in float32
+(float32 atomics sum hundreds of taps in another order) and 2^-7 in
+bfloat16 (both sides one bfloat16 rounding of float32 sums); RoI
+gradients (float32 in both) |d| <= 1e-4 |ref| + 1e-4 max|ref| (channel
+sums over hundreds of taps in another order). The tiny training step, GPU against
+CPU: losses to 1e-4 relative (1e-3 after the PnP), each gradient to 1e-3
+of its leaf's largest entry (cuDNN's convolution backward and the atomics
+sum in other orders).
+
 Bounds: the least time for a call is the larger of the bytes it must move
 (the feature rows its taps touch with non-zero weight, the RoIs and the
 output, each once) over 3.35 TB/s and its bilinear FMAs (4 per channel per
 computed sample, 2 FLOPs each) over 67 TFLOP/s, the H100 SXM's float32
 rate outside the tensor cores. Every kernel computes the same function,
 so the staged kernels share the direct kernel's bound on the same call.
+The backward's bound (``backward_work``): the output gradient read, each
+touched level cell read once (for the RoI gradient), the dense level
+gradient written once in the level's dtype, the RoIs read and their
+gradient written; operations 2 FLOPs per channel per distinct tap of a
+bin (the level gradient) and 2 x 2 per channel per tap of a computed
+sample (the RoI gradient along each axis). Printed apart as
+``design_bytes`` and ``design_ms`` (over 3.35 TB/s): the bytes this
+kernel's design moves, which adds the float32 scratch of every level
+zero-filled, a float32 read-modify-write of each touched cell, and for
+bfloat16 levels the cast (4 bytes read, 2 written per element).
 
 Any failed phase, or no GPU, exits non-zero without the last line.
 """
@@ -89,6 +135,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -100,7 +147,11 @@ import torch
 from monorun_tpu_torch.apis.inference import init_inference
 from monorun_tpu_torch.config import get_config
 from monorun_tpu_torch.data.pipeline import device_preprocess
-from monorun_tpu_torch.models.detector import HeadDraws
+from monorun_tpu_torch.models.detector import (
+    HeadDraws, MonoRUn, init_random_weights,
+)
+from monorun_tpu_torch.train import create_train_state, train_step
+from monorun_tpu_torch.utils.synthetic import synthetic_train_batch
 from monorun_tpu_torch.ops import roi_align as ra
 from monorun_tpu_torch.ops import roi_align_band as rb
 from monorun_tpu_torch.ops import roi_align_cuda as rc
@@ -117,17 +168,23 @@ KERNEL_SOURCE = "monorun_tpu_torch/csrc/roi_align.cu"
 REPLACES = ("monorun_tpu/ops/roi_align_band.py:57 (_band_kernel), "
             "monorun_tpu/ops/roi_align_sorted.py:99 (_sorted_kernel)")
 TOLERANCE = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (1e-5, 1e-5)}
-ALL_KERNELS = (roi_align_kernel, *rc.STAGED_KERNELS)
-KERNEL_NAMES = {roi_align_kernel: "roi_align", rc.tile_kernel: "roi_align_tile",
+ALL_KERNELS = (roi_align_kernel, rc.roi_align_backward_kernel, *rc.STAGED_KERNELS)
+KERNEL_NAMES = {roi_align_kernel: "roi_align",
+                rc.roi_align_backward_kernel: "roi_align_backward",
+                rc.tile_kernel: "roi_align_tile",
                 rc.band_tiered_kernel: "roi_align_band_tiered",
                 rc.band_packed_kernel: "roi_align_band_packed",
                 rc.band_matmul_kernel: "roi_align_band_matmul"}
 SOURCES = {"roi_align": KERNEL_SOURCE,
+           "roi_align_backward": "monorun_tpu_torch/csrc/roi_align_bwd.cu",
            "roi_align_tile": "monorun_tpu_torch/csrc/roi_align_tile.cu",
            "roi_align_band_tiered": "monorun_tpu_torch/csrc/roi_align_band.cu",
            "roi_align_band_packed": "monorun_tpu_torch/csrc/roi_align_mma.cu",
            "roi_align_band_matmul": "monorun_tpu_torch/csrc/roi_align_mma.cu"}
 REPLACED = {"roi_align": REPLACES,
+            "roi_align_backward": "monorun_tpu/ops/roi_align_sorted.py:99 (_sorted_kernel, "
+                                  "every align of the training step): its gradient, "
+                                  "jax.grad through monorun_tpu/ops/roi_align.py:186",
             "roi_align_tile": "monorun_tpu/ops/roi_align_pallas.py:55 (_kernel)",
             "roi_align_band_tiered": "monorun_tpu/ops/roi_align_band.py:142 "
                                      "(_band_kernel_tiered)",
@@ -159,20 +216,56 @@ def max_err(got: torch.Tensor, ref: torch.Tensor):
     return float(d.max()), ok
 
 
-def align_work(feats, rois, strides, out_size, finest, max_ratio):
-    """(bytes, FLOPs) one align call must move and do on these inputs."""
+def backward_reductions() -> dict:
+    """The global atomics and reductions in the loaded backward build's
+    SASS (``cuobjdump -sass``), counted by instruction."""
+    lib = rc.build_all.libs["roi_align_bwd"]._name
+    cuobjdump = Path(rc._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    ops = re.findall(r"\b((?:RED|ATOM)G?\.[A-Za-z0-9_.]+)", sass)
+    return {op: ops.count(op) for op in sorted(set(ops))}
+
+
+def touched_cells(feats, rois, strides, out_size, finest, max_ratio):
+    """(level cells the call's taps touch with non-zero weight, computed
+    samples)."""
     sizes = [(f.shape[1], f.shape[2]) for f in feats]
-    C, item = feats[0].shape[-1], feats[0].element_size()
     rows, samples = [], 0
     for start in range(0, rois.shape[0], 1024):
         r, w, avg = ra.sample_taps(sizes, rois[start:start + 1024].float(), strides,
                                    out_size, finest, max_ratio, ra.LONG_SPAN_CAP)
         rows.append(torch.unique(r[(w > 0) & (avg > 0)]))
         samples += int(((w.sum(0) > 0) & (avg > 0)).sum())
-    touched = int(torch.unique(torch.cat(rows)).numel())
+    return int(torch.unique(torch.cat(rows)).numel()), samples
+
+
+def align_work(feats, rois, strides, out_size, finest, max_ratio):
+    """(bytes, FLOPs) one align call must move and do on these inputs."""
+    C, item = feats[0].shape[-1], feats[0].element_size()
+    touched, samples = touched_cells(feats, rois, strides, out_size, finest, max_ratio)
     n = rois.shape[0]
     nbytes = touched * C * item + n * 5 * 4 + n * out_size[0] * out_size[1] * C * item
     return nbytes, 2 * 4 * C * samples
+
+
+def backward_work(feats, rois, strides, out_size, finest, max_ratio):
+    """(bytes, FLOPs, design bytes) of one backward call on these inputs:
+    what the function must move and do (the bound of the module
+    docstring), and the bytes the kernel's design moves (with the float32
+    scratch's zero fill, read-modify-write and cast)."""
+    C, item = feats[0].shape[-1], feats[0].element_size()
+    touched, samples = touched_cells(feats, rois, strides, out_size, finest, max_ratio)
+    n = rois.shape[0]
+    bins = n * out_size[0] * out_size[1]
+    cells = sum(f.shape[0] * f.shape[1] * f.shape[2] for f in feats)
+    nbytes = bins * C * item + touched * C * item + cells * C * item + n * 5 * 4 * 2
+    cast = 6 if feats[0].dtype == torch.bfloat16 else 0
+    design = (bins * C * item + touched * C * (item + 8) + cells * C * (4 + cast)
+              + n * 5 * 4 * 2)
+    distinct = tap_counts(feats, rois, strides, out_size, finest, max_ratio)[
+        "distinct_taps_per_bin"] * bins
+    return nbytes, int(2 * C * distinct + 2 * 2 * 4 * C * samples), design
 
 
 def tap_counts(feats, rois, strides, out_size, finest, max_ratio):
@@ -614,8 +707,284 @@ def phase_micro():
     counts = read_counts()
     print(f"launches micro-bench align48: {json.dumps(counts)}", flush=True)
     for name, n in counts.items():
-        check(n > 0, f"the micro-bench A/B did not launch {name}")
+        # the A/B times forward aligns only
+        check((n > 0) != (name == "roi_align_backward"),
+              f"the micro-bench A/B launched {name} {n} times")
     return counts
+
+
+# ---- the direct kernel's backward ---------------------------------------------
+
+# (rtol, atol share of max |ref|) of the level and the RoI gradients
+GRAD_TOLERANCE = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (1e-5, 1e-5)}
+ROI_GRAD_TOLERANCE = (1e-4, 1e-4)
+TRAIN_STEPS = 3
+TRAIN_LOSSES = ("loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "loss_bbox", "loss_dim",
+                "loss_proj", "loss_calib", "loss_score", "mean_iou", "total_loss")
+AFTER_PNP = ("loss_score", "mean_iou")
+
+
+def plain_grads(feats, rois, strides, out_size, finest, max_ratio, grad_out):
+    """The plain version's autograd in float32 on the upcast inputs:
+    (level gradients, RoI gradient)."""
+    f32 = [f.detach().float().requires_grad_() for f in feats]
+    r32 = rois.detach().float().requires_grad_()
+    out = ra.multilevel_roi_align(f32, r32, strides, out_size, finest, max_ratio=max_ratio,
+                                  long_span_cap=ra.LONG_SPAN_CAP)
+    grads = torch.autograd.grad(out, f32 + [r32], grad_out.float())
+    return list(grads[:-1]), grads[-1]
+
+
+def grad_err(got, ref, rtol, atol_rel):
+    """(max abs error, within rtol |ref| + atol_rel max |ref|)."""
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    bound = rtol * ref.abs() + atol_rel * ref.abs().max()
+    return float(d.max()), bool(torch.isfinite(got).all()) and bool((d <= bound).all())
+
+
+def compare_backward(label, feats, rois, grad_out, strides, out_size, finest, max_ratio,
+                     flush):
+    """Backward kernel against the plain version's autograd on one call;
+    prints one line and returns its record."""
+    kernel = rc.roi_align_backward_kernel
+    dtype = feats[0].dtype
+
+    def run_kernel():
+        return kernel(feats, rois, grad_out, strides, out_size, finest, max_ratio,
+                      ra.LONG_SPAN_CAP)
+
+    def run_plain():
+        return plain_grads(feats, rois, strides, out_size, finest, max_ratio, grad_out)
+
+    (d_levels, d_rois), (ref_levels, ref_rois) = run_kernel(), run_plain()
+    torch.cuda.synchronize()
+    errs = [grad_err(g, r.to(dtype), *GRAD_TOLERANCE[dtype])
+            for g, r in zip(d_levels, ref_levels)]
+    roi_err, roi_ok = grad_err(d_rois, ref_rois, *ROI_GRAD_TOLERANCE)
+    nbytes, flops, design = backward_work(feats, rois, strides, out_size, finest, max_ratio)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    rec = dict(call=label, dtype=str(dtype).replace("torch.", ""), rois=int(rois.shape[0]),
+               out=list(out_size), max_ratio=max_ratio,
+               max_abs_err_levels=max(e for e, _ in errs), max_abs_err_rois=roi_err,
+               max_abs_ref_levels=max(float(r.abs().max()) for r in ref_levels),
+               max_abs_ref_rois=float(ref_rois.abs().max()),
+               ms=device_ms(run_kernel, 15, flush), plain_ms=device_ms(run_plain, 3, flush),
+               empty_ms=device_ms(roi_align_kernel.empty_launch, 15, flush),
+               bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               design_bytes=design, design_ms=design / HBM_BYTES_PER_S * 1e3,
+               launch_shape=kernel.launch_shape(int(rois.shape[0]), out_size))
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    rec["max_abs_err"] = max(rec["max_abs_err_levels"], roi_err)
+    print("backward " + json.dumps(rec), flush=True)
+    check(all(ok for _, ok in errs), f"backward kernel and plain autograd disagree on the "
+                                     f"level gradients of {label} ({rec['dtype']})")
+    check(roi_ok, f"backward kernel and plain autograd disagree on the RoI gradient of "
+                  f"{label} ({rec['dtype']}): max abs error {roi_err}")
+    return rec
+
+
+def phase_backward(cfg, flush, dev):
+    """The backward kernel on the batch-8 pyramid of phase 3 at the training
+    step's three align shapes (per image: 512 sampled RoIs and 128
+    positives at batch 3, so 1536 and 384), in both dtypes."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    H, W = cfg.data.pad_height, cfg.data.pad_width
+    strides = ra.align_strides(cfg.neck.lazy_lower, cfg.bbox_head.featmap_strides)
+    feats32 = [torch.randn(BATCH, H // s, W // s, cfg.neck.out_channels, generator=gen,
+                           device=dev) for s in strides]
+    tr = cfg.train
+    n_sampled = tr.samples_per_device * tr.rcnn_num_samples // BATCH
+    n_pos = tr.samples_per_device * tr.max_pos // BATCH
+    sampled = synthetic_rois(n_sampled, BATCH, (375, 1242), 2.0, 600.0, gen, dev)
+    pos = synthetic_rois(n_pos, BATCH, (375, 1242), 10.0, 400.0, gen, dev)
+    bh, nh = cfg.bbox_head, cfg.noc_head
+    calls = (
+        ("sampled 7x7", sampled, (7, 7), bh.finest_scale, bh.align_max_ratio),
+        ("positives 7x7", pos, (7, 7), bh.finest_scale, bh.align_max_ratio),
+        ("positives 14x14", pos, (nh.roi_size,) * 2, nh.finest_scale, nh.align_max_ratio),
+    )
+    recs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        feats = [f.to(dtype) for f in feats32]
+        for label, rois, out_size, finest, mr in calls:
+            grad_out = torch.randn((rois.shape[0],) + out_size + (feats[0].shape[-1],),
+                                   generator=gen, device=dev).to(dtype)
+            recs.append(compare_backward(f"synthetic {label}", feats, rois, grad_out,
+                                         strides, out_size, finest, mr, flush))
+        del feats
+    return recs
+
+
+# ---- training ----------------------------------------------------------------
+
+
+def check_train_metrics(m, what):
+    missing = set(TRAIN_LOSSES) - set(m)
+    check(not missing, f"{what}: metrics miss {sorted(missing)}")
+    for k in TRAIN_LOSSES:
+        check(bool(torch.isfinite(torch.as_tensor(m[k])).all()), f"{what}: {k} is not finite")
+    check(int(m["nonfinite_grad_leaves"]) == 0,
+          f"{what}: {int(m['nonfinite_grad_leaves'])} non-finite gradient leaves")
+
+
+def phase_train(flush, dev, card):
+    """kitti_multiclass training at full width: 3 AdamW steps on a seeded
+    synthetic batch, with the checks of the module docstring (phase 10)."""
+    cfg = get_config("kitti_multiclass")
+    Bt = cfg.train.samples_per_device
+    H, W = cfg.data.pad_height, cfg.data.pad_width
+    model, state, opt = create_train_state(cfg, total_steps=1000, device="cuda", seed=0)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic_train_batch(cfg, Bt, (H, W), seed=0).items()}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # frozen stages, and the calibration scales (their only loss is off
+    # before step 100)
+    fixed = ("backbone.conv1.weight", "backbone.layer1.0.conv1.weight",
+              "roi_head.pose_head.cov_calib_logscale")
+    trainable = ("backbone.layer2.0.conv1.weight", "neck.lateral_convs.0.conv.weight",
+                 "rpn_head.rpn_reg.weight", "roi_head.noc_head.convs.0.conv.weight")
+    params = dict(model.named_parameters())
+    before = {n: params[n].detach().clone() for n in fixed + trainable}
+
+    recorded = []
+    align = model._align
+
+    def recording_align(feats, rois, head_cfg, out_size, tile_h, pyramid):
+        out = align(feats, rois, head_cfg, out_size, tile_h, pyramid)
+        rec = [feats, rois.detach(), head_cfg, out_size, out.detach(), None]
+        out.register_hook(lambda g: rec.__setitem__(5, g.detach()))
+        recorded.append(rec)
+        return out
+
+    times, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with align_env({}):
+        reset_counts()
+        try:
+            for i in range(TRAIN_STEPS):
+                model._align = recording_align if i == 0 else align
+                start = read_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = train_step(model, opt, state, batch, generator=gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                step = {k: v - start[k] for k, v in read_counts().items()}
+                check_launches(step, {"roi_align": 3, "roi_align_backward": 3}, 1,
+                               f"train step {i}")
+                check_train_metrics(m, f"train step {i}")
+                check(float(m["loss_calib"]) == 0.0, "loss_calib is on before step 100")
+                losses.append({k: float(m[k]) for k in TRAIN_LOSSES})
+        finally:
+            model._align = align
+        counts = read_counts()
+    check_launches(counts, {"roi_align": 3, "roi_align_backward": 3}, TRAIN_STEPS, "train")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for n in fixed:
+        check(torch.equal(params[n], before[n]), f"parameter {n} moved")
+    for n in trainable:
+        check(not torch.equal(params[n], before[n]), f"trainable parameter {n} did not move")
+    ms = statistics.median(times[1:])
+    print("train " + json.dumps(dict(
+        config="kitti_multiclass", card=card, batch=Bt, canvas=[H, W],
+        compute_dtype=cfg.compute_dtype, steps=TRAIN_STEPS, ms_per_step=ms, ms_each=times,
+        first_ms=times[0], losses=losses, peak_mem_gib=peak, step=state.step,
+        loss_ema=float(state.loss_ema))), flush=True)
+
+    recs = []
+    labels = ("sampled 7x7", "positives 7x7", "positives 14x14")
+    for label, (feats, rois, head_cfg, out_size, out, grad_out) in zip(labels, recorded):
+        check(grad_out is not None, f"the step's {label} align got no output gradient")
+        n_lvl = len(head_cfg.featmap_strides)
+        strides = ra.align_strides(cfg.neck.lazy_lower, head_cfg.featmap_strides)
+        feats = [f.detach().contiguous() for f in feats[:n_lvl]]
+        rois = rois.float().contiguous()
+        with torch.no_grad():
+            plain = ra.multilevel_roi_align(
+                feats, rois, strides, out_size, head_cfg.finest_scale,
+                max_ratio=head_cfg.align_max_ratio, long_span_cap=ra.LONG_SPAN_CAP)
+        err, ok = max_err(out, plain)
+        print(f"train align {label}: the step's kernel output ({out.dtype}, "
+              f"{rois.shape[0]} RoIs) against plain version, max abs error {err}", flush=True)
+        check(ok, f"the step's {label} align disagrees with the plain version")
+        recs.append(compare_backward(
+            f"train {label}", feats, rois, grad_out.contiguous(), strides, out_size,
+            head_cfg.finest_scale, head_cfg.align_max_ratio, flush))
+    del recorded, model, opt
+    torch.cuda.empty_cache()
+    return recs, counts, dict(ms_per_step=ms, peak_mem_gib=peak)
+
+
+def tiny_train_config():
+    cfg = tiny_config()
+    r = dataclasses.replace
+    return r(
+        cfg,
+        rpn=r(cfg.rpn, nms_pre=32, nms_post=32, train_nms_pre=32),
+        train=r(cfg.train, rcnn_num_samples=32, max_pos=8, rpn_num_samples=32),
+        noc_head=r(cfg.noc_head, with_lidar_loss=True, dropout2d_rate=0.5),
+    )
+
+
+def phase_tiny_train():
+    """The same tiny float32 training step on the GPU and on the CPU: same
+    weights, batch and draws; losses to 1e-4 (1e-3 after the PnP), each
+    gradient to 1e-3 of its leaf's scale; and the RoI path's share of
+    rpn_reg's gradient on both."""
+    cfg = tiny_train_config()
+    B, H, W = 2, cfg.data.pad_height, cfg.data.pad_width
+    batch_np = synthetic_train_batch(cfg, B, (H, W), num_gt=6, num_pts=32, seed=1)
+    cpu_model = init_random_weights(MonoRUn(cfg), torch.Generator().manual_seed(11))
+    sd = cpu_model.state_dict()
+    cpu_batch = {k: torch.as_tensor(v) for k, v in batch_np.items()}
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = MonoRUn(cfg)
+        model.load_state_dict(sd)
+        model.to(device)
+        batch = {k: v.to(device) for k, v in cpu_batch.items()}
+        start = read_counts()
+        # the draws come from a CPU generator of the same seed on both devices
+        total, (losses, _) = model.train_forward(batch, torch.ones((), device=device),
+                                                 generator=torch.Generator().manual_seed(12))
+        names = [n for n, _ in model.named_parameters()]
+        params = [p for _, p in model.named_parameters()]
+        grads = torch.autograd.grad(total, params, retain_graph=True)
+        rpn_only = torch.autograd.grad(losses["loss_rpn_cls"] + losses["loss_rpn_bbox"],
+                                       model.rpn_head.rpn_reg.weight)[0]
+        g_reg = grads[names.index("rpn_head.rpn_reg.weight")]
+        share = float((g_reg - rpn_only).norm() / g_reg.norm())
+        if device == "cuda":
+            torch.cuda.synchronize()
+            step = {k: v - start[k] for k, v in read_counts().items()}
+            check_launches(step, {"roi_align": 3, "roi_align_backward": 3}, 1,
+                           "tiny train step")
+        out[device] = ({k: float(v.detach()) for k, v in dict(losses, total_loss=total).items()},
+                       dict(zip(names, grads)), share)
+    (cl, cg, cshare), (gl, gg, gshare) = out["cpu"], out["cuda"]
+    loss_err = {}
+    for k, v in cl.items():
+        a, b = gl[k], v
+        rtol = 1e-3 if k in AFTER_PNP else 1e-4
+        loss_err[k] = abs(a - b) / max(abs(b), 1e-6)
+        check(abs(a - b) <= rtol * max(abs(b), 1e-5), f"tiny train: {k} differs GPU vs CPU "
+                                                      f"({a} against {b})")
+    grad_rel = {}
+    for n, ref in cg.items():
+        got = gg[n].cpu().double()
+        scale = float(ref.abs().max())
+        grad_rel[n] = float((got - ref.double()).abs().max()) / max(scale, 1e-30)
+        check(bool(((got - ref.double()).abs() <= 1e-3 * scale).all()),
+              f"tiny train: the gradient of {n} differs GPU vs CPU "
+              f"({grad_rel[n]} of its scale)")
+    worst = max(grad_rel, key=grad_rel.get)
+    print("tiny_train " + json.dumps(dict(
+        losses=cl, loss_rel_err=loss_err,
+        grad_max_err_of_scale=grad_rel[worst], worst_leaf=worst,
+        zero_grad_leaves=sum(1 for v in cg.values() if not bool(v.any())),
+        roi_path_share_of_rpn_reg_grad=dict(cpu=cshare, gpu=gshare))), flush=True)
 
 
 def profile_serve(sess, requests, ms_per_batch, table_path):
@@ -798,8 +1167,9 @@ def main() -> int:
     for spec in args.ab:
         name, _, src = spec.rpartition("=")
         name = name or "roi_align"
-        if name not in by_name:
-            ap.error(f"--ab {spec}: {name!r} is not one of {sorted(by_name)}")
+        if name not in by_name or name == "roi_align_backward":
+            ap.error(f"--ab {spec}: {name!r} is not a forward kernel of "
+                     f"{sorted(set(by_name) - {'roi_align_backward'})}")
         ab_specs.append((by_name[name], Path(src)))
     if not torch.cuda.is_available():
         print("FAIL no CUDA device is available", file=sys.stderr)
@@ -818,12 +1188,19 @@ def main() -> int:
         for line in rc.build_all.log.splitlines():
             if line.startswith("==") or "registers" in line or "spill" in line:
                 print(f"build {line.strip()}", flush=True)
-        attributes = {roi_align_kernel: roi_align_kernel.attributes()}
+        attributes = {roi_align_kernel: roi_align_kernel.attributes(),
+                      rc.roi_align_backward_kernel: rc.roi_align_backward_kernel.attributes()}
         attributes.update({k: k.attributes() for k in rc.STAGED_KERNELS})
         for k, attr in attributes.items():
             print(f"build {KERNEL_NAMES[k]} " + json.dumps(attr), flush=True)
             check(all(a["local_bytes"] == 0 for a in attr.values()),
                   f"{KERNEL_NAMES[k]} uses local memory (spills or stack): {attr}")
+        reductions = backward_reductions()
+        print("build roi_align_backward global atomics in the SASS " + json.dumps(reductions),
+              flush=True)
+        check(bool(reductions) and all("F32x4" in op for op in reductions),
+              f"the backward's level gradient is not one vector reduction per 4 channels: "
+              f"{reductions}")
         ab = [rc.RoIAlignKernel(source=src) for k, src in ab_specs if k is roi_align_kernel]
         ab_staged = {}
         for k, src in ab_specs:
@@ -847,6 +1224,13 @@ def main() -> int:
         del calls
         paths = phase_serve_variants(sess, requests, cfg, card)
         micro = phase_micro()
+        del sess, requests
+        torch.cuda.empty_cache()
+        with align_env({}):
+            backward = phase_backward(cfg, flush, dev)
+        train_recs, train_counts, _ = phase_train(flush, dev, card)
+        with align_env({}):
+            phase_tiny_train()
     except SmokeFailure as e:
         print(f"FAIL {e}", file=sys.stderr)
         return 1
@@ -857,10 +1241,12 @@ def main() -> int:
                 "roi_align_band_tiered": paths["band tiered"]["roi_align_band_tiered"],
                 "roi_align_band_packed": micro["roi_align_band_packed"],
                 "roi_align_band_matmul": paths["bandmm"]["roi_align_band_matmul"]}
-    kernels = [direct] + [
+    kernels = [direct, kernel_record("roi_align_backward", train_counts["roi_align_backward"],
+                                     train_recs)] + [
         kernel_record(name, n, [r for r in staged if r["kernel"] == name
                                 and r["variant"] != "matmul t1 bf16"])
         for name, n in launches.items()]
+    kernels[1]["max_abs_err"] = max(r["max_abs_err"] for r in backward + train_recs)
     for rec in kernels:
         rec["attributes"] = attributes[by_name[rec["name"]]]
     print(f"clocks {clocks_line()}", flush=True)

@@ -1,9 +1,7 @@
-"""Target coders: decode transforms for dimensions, NOC maps and
-reprojection uncertainty (``monorun_tpu/coders.py`` in PyTorch).
+"""Target coders: encode and decode transforms for dimensions, NOC maps,
+reprojection errors and rotations (``monorun_tpu/coders.py`` in PyTorch).
 
 Channels-last ``(n, h, w, c)`` maps, flip as a per-RoI boolean vector.
-Only what serving needs is here: the decoders and ``cov_correction``
-(the encoders are training targets and come with the training port).
 """
 
 from __future__ import annotations
@@ -12,6 +10,8 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from .ops.clip import clip
 
 Tensor = torch.Tensor
 
@@ -32,6 +32,28 @@ class NOCCoder:
     target_means: Sequence[float] = NOC_MEANS
     target_stds: Sequence[float] = NOC_STDS
     eps: float = 1e-5
+
+    def encode(
+        self,
+        gt_coords_3d: Tensor,       # (n, h, w, 3) mask-weighted coords
+        gt_coords_3d_mask: Tensor,  # (n, h, w, 1)
+        dimensions: Tensor,         # (n, 3) [l, h, w]
+        flip: Tensor,               # (n,) bool
+    ) -> Tuple[Tensor, Tensor]:
+        """Masked object coords -> z-scored NOC parts and their mask; z is
+        negated under a horizontal flip (the object frame is mirrored)."""
+        means = _const(self.target_means, gt_coords_3d)
+        stds = _const(self.target_stds, gt_coords_3d)
+        foreground = gt_coords_3d_mask >= self.eps
+        parts = (gt_coords_3d / clip(gt_coords_3d_mask, self.eps)
+                 / clip(dimensions, self.eps)[:, None, None, :])
+        parts_mask = torch.where(foreground, gt_coords_3d_mask,
+                                 torch.zeros_like(gt_coords_3d_mask))
+        flip_sign = torch.where(flip[:, None, None], -1.0, 1.0).to(parts.dtype)
+        parts = parts * torch.stack(
+            [torch.ones_like(flip_sign), torch.ones_like(flip_sign), flip_sign], -1)
+        parts = (parts - means) / stds
+        return parts * parts_mask, parts_mask
 
     def decode(
         self,
@@ -72,6 +94,11 @@ class DimCoder:
     target_means: Sequence[Sequence[float]] = KITTI_DIM_MEANS
     target_stds: Sequence[Sequence[float]] = KITTI_DIM_STDS
 
+    def encode(self, dimensions: Tensor, labels: Tensor) -> Tensor:
+        means = _const(self.target_means, dimensions)[labels]
+        stds = _const(self.target_stds, dimensions)[labels]
+        return (dimensions - means) / stds
+
     def decode(
         self, dim: Tensor, dim_var: Optional[Tensor], labels: Tensor
     ) -> Tuple[Tensor, Optional[Tensor]]:
@@ -95,6 +122,15 @@ class ProjErrorCoder:
     @property
     def scaling_denominator(self) -> float:
         return self.ref_length * self.ref_focal_y * self.target_std
+
+    def encode(self, coords_2d_diff_std: Tensor, distance: Tensor) -> Tensor:
+        """Pixel reprojection error (n, h, w, c) at distance (n, 1) ->
+        distance-invariant error."""
+        return coords_2d_diff_std * (distance[:, None, None, :] / self.scaling_denominator)
+
+    def decode(self, proj_error_std: Tensor, distance: Tensor) -> Tensor:
+        d = clip(distance[:, None, None, :], self.distance_min)
+        return proj_error_std * (self.scaling_denominator / d)
 
     def decode_logstd(
         self,
@@ -122,3 +158,15 @@ class ProjErrorCoder:
         # cov: (n, 4, 4); distance: (n,)
         scale = (self.scaling_denominator / distance).square()
         return cov * scale[:, None, None]
+
+
+def encode_rotation(angles: Tensor) -> Tensor:
+    """yaw -> (cos, sin)."""
+    if angles.dim() == 1:
+        angles = angles[:, None]
+    return torch.cat([torch.cos(angles), torch.sin(angles)], -1)
+
+
+def decode_rotation(vecs: Tensor) -> Tensor:
+    """(cos, sin) -> yaw."""
+    return torch.atan2(vecs[..., 1], vecs[..., 0])

@@ -57,7 +57,8 @@
 // dealt over blockIdx.y until the grid holds about 1.25 times the warps
 // the SMs hold at once.
 // Nothing is allocated and nothing is prepared on the host; the per-RoI
-// geometry is a few scalar operations every thread recomputes. The TPU
+// geometry (roi_align_geometry.cuh, shared with the backward kernel
+// roi_align_bwd.cu) is a few scalar operations every thread recomputes. The TPU
 // staging (flat padded pyramid, tile DMAs, band bucketing) has no
 // counterpart. Output stores bypass the L2's normal retention
 // (st.global.cs) so the large proposal output does not push the pyramid's
@@ -73,27 +74,19 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "roi_align_geometry.cuh"
+
 namespace {
 
-constexpr int kMaxLevels = 5;
-constexpr int kMaxRatio = 16;    // samples per axis: one lane each, half a warp
+using roi_align::kMaxLevels;
+using roi_align::kMaxRatio;
+using roi_align::Pyramid;
+
 constexpr int kMaxWarps = 16;
 // blocks of kMaxWarps per SM that ptxas must fit: 64 registers per thread,
 // so 32 warps per SM at 7x7 (4 blocks of 8); float32 at 88 registers, 16
 // warps, measured about 20 % slower on an H100
 constexpr int kMinBlocks = 2;
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Pyramid {
-  const void* ptr[kMaxLevels];
-  long long batch_stride[kMaxLevels];
-  long long row_stride[kMaxLevels];
-  long long col_stride[kMaxLevels];
-  int height[kMaxLevels];
-  int width[kMaxLevels];
-  float inv_stride[kMaxLevels];
-  int levels;
-};
 
 struct Params {
   const float* rois;
@@ -144,18 +137,6 @@ struct Pack<__nv_bfloat16> {
     __stcs(reinterpret_cast<uint4*>(p), q);
   }
 };
-
-// mmdet level mapping plus the long-side cap
-// (monorun_tpu_torch/ops/roi_align.py:assign_fpn_levels)
-__device__ __forceinline__ int roi_level(float w, float h, const Params& p, int levels) {
-  float lvl = floorf(log2f(sqrtf(w * h) / p.finest_scale + 1e-6f));
-  if (p.span_limit > 0.f) {
-    const float need =
-        ceilf(log2f(fmaxf(fmaxf(w, h) / p.span_limit, 9.5367431640625e-07f)));  // 2^-20
-    lvl = fmaxf(lvl, need);
-  }
-  return (int)fminf(fmaxf(lvl, 0.f), (float)(levels - 1));
-}
 
 // The lists of one RoI, in dynamic shared memory: for every output row
 // (lists 0..out_h-1) and column (out_h..out_h+out_w-1), up to 2*max_ratio
@@ -211,25 +192,10 @@ roi_align_forward_kernel(const Pyramid pyr, const Params p) {
   constexpr int V = Pack<T>::kWidth;
   extern __shared__ int4 smem[];
   const long long r = blockIdx.x;
-  const float* roi = p.rois + 5 * r;
-  // batch index clamped into range so a malformed RoI cannot read out of
-  // bounds (the detector always passes valid indices)
-  const int b = min(max((int)roi[0], 0), p.batch - 1);
-  const float w = fmaxf(roi[3] - roi[1], 0.f);
-  const float h = fmaxf(roi[4] - roi[2], 0.f);
-  const int lvl = roi_level(w, h, p, pyr.levels);
-
-  const float s = pyr.inv_stride[lvl];
-  const float x1 = roi[1] * s - 0.5f;
-  const float y1 = roi[2] * s - 0.5f;
-  const float roi_w = (roi[3] * s - 0.5f) - x1;
-  const float roi_h = (roi[4] * s - 0.5f) - y1;
-  const float bin_w = roi_w / (float)p.out_w;
-  const float bin_h = roi_h / (float)p.out_h;
-  const int gw = (int)fminf(fmaxf(ceilf(roi_w / (float)p.out_w), 1.f), (float)p.max_ratio);
-  const int gh = (int)fminf(fmaxf(ceilf(roi_h / (float)p.out_h), 1.f), (float)p.max_ratio);
-  const float avg = 1.f / (float)(gh * gw);
-  const int H = pyr.height[lvl], W = pyr.width[lvl];
+  const roi_align::RoIGeometry geo = roi_align::roi_geometry(
+      p.rois + 5 * r, pyr, p.batch, p.out_h, p.out_w, p.max_ratio, p.finest_scale,
+      p.span_limit);
+  const int b = geo.b, lvl = geo.lvl, gw = geo.gw, gh = geo.gh;
 
   const int L = 2 * p.max_ratio;                  // entries per list
   const int n_lists = p.out_h + p.out_w;
@@ -245,60 +211,20 @@ roi_align_forward_kernel(const Pyramid pyr, const Params p) {
   //      the list on the same row/column, in tap order (near, far of
   //      sample 0, near, far of sample 1, ...): the first tap holds the sum
   {
-    const int half_base = lane & 16, i = lane & 15;
     const int gmax = max(gh, gw);
     for (int q0 = 0; q0 < n_lists; q0 += 2 * warps) {
-      const int q = q0 + 2 * warp + (half_base >> 4);
+      const int q = q0 + 2 * warp + ((lane & 16) >> 4);
       const bool is_x = q >= p.out_h;
-      const int g = q < n_lists ? (is_x ? gw : gh) : 0;
-      const float bin = is_x ? bin_w : bin_h;
-      const int size = is_x ? W : H;
-      const float sizef = (float)size;
-      const float c = (is_x ? x1 : y1) + (float)(is_x ? q - p.out_h : q) * bin +
-                      ((float)i + 0.5f) * bin / (float)g;
-      const bool live = i < g;
-      const bool valid = live && c >= -1.f && c <= sizef;
-      const float cc = fminf(fmaxf(c, 0.f), sizef - 1.f);
-      const float cf = floorf(cc);
-      const int t0 = (int)cf;
-      const int t1 = min(t0 + 1, size - 1);
-      const float lo = cc - cf;
-      const float w0 = valid ? 1.f - lo : 0.f, w1 = valid ? lo : 0.f;
-
-      float s0 = 0.f, s1 = 0.f;
-      bool own0 = live, own1 = live && t1 != t0;
-      for (int j = 0; j < gmax; ++j) {
-        const int a0 = __shfl_sync(kFull, t0, half_base + j);
-        const int a1 = __shfl_sync(kFull, t1, half_base + j);
-        const float b0 = __shfl_sync(kFull, w0, half_base + j);
-        const float b1 = __shfl_sync(kFull, w1, half_base + j);
-        if (j < g) {
-          s0 += a0 == t0 ? b0 : 0.f;
-          s0 += a1 == t0 ? b1 : 0.f;
-          s1 += a0 == t1 ? b0 : 0.f;
-          s1 += a1 == t1 ? b1 : 0.f;
-          if (j < i) {
-            own0 = own0 && a0 != t0 && a1 != t0;
-            own1 = own1 && a0 != t1 && a1 != t1;
-          }
-        }
-      }
-      own0 = own0 && s0 != 0.f;
-      own1 = own1 && s1 != 0.f;
-      if (!is_x) {      // the average folds into the rows
-        s0 *= avg;
-        s1 *= avg;
-      }
-      // compact the surviving taps of the half: near taps, then far taps
-      const unsigned m0 = (__ballot_sync(kFull, own0) >> half_base) & 0xffffu;
-      const unsigned m1 = (__ballot_sync(kFull, own1) >> half_base) & 0xffffu;
-      const unsigned below = (1u << i) - 1u;
+      const roi_align::ListTaps t = roi_align::list_taps(
+          is_x ? geo.x1 : geo.y1, is_x ? q - p.out_h : q, is_x ? geo.bin_w : geo.bin_h,
+          q < n_lists ? (is_x ? gw : gh) : 0, is_x ? geo.W : geo.H, gmax,
+          is_x ? 1.f : geo.avg, lane);   // the average folds into the rows
       if (q < n_lists) {
         const int stride = (int)(is_x ? pyr.col_stride[lvl] : pyr.row_stride[lvl]) * sizeof(T);
         Entry* list = lists + q * L;
-        if (own0) list[__popc(m0 & below)] = Entry{t0 * stride, s0};
-        if (own1) list[__popc(m0) + __popc(m1 & below)] = Entry{t1 * stride, s1};
-        if (i == 0) counts[q] = __popc(m0) + __popc(m1);
+        if (t.own0) list[t.slot0] = Entry{t.t0 * stride, t.s0};
+        if (t.own1) list[t.slot1] = Entry{t.t1 * stride, t.s1};
+        if ((lane & 15) == 0) counts[q] = t.count;
       }
     }
   }
@@ -381,8 +307,7 @@ extern "C" int roi_align_forward(int is_bf16, int levels, const void* const* lev
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const int bins = out_h * out_w;
-  const int lists4 = (out_h + out_w + 7) / 8 * 4;
-  const int warps = lists4 < kMaxWarps ? lists4 : kMaxWarps;
+  const int warps = roi_align::block_warps(out_h, out_w, kMaxWarps);
   const int rounds = (bins + warps - 1) / warps;
   const long long want = 80LL * sms, have = (long long)n * warps;
   const long long fill = (want + have - 1) / have;

@@ -1,6 +1,7 @@
-"""MonoRUn detector, serving path: the PyTorch counterpart of
+"""MonoRUn detector: the PyTorch counterpart of
 ``monorun_tpu/models/detector.py`` (``serve_raw``, ``heads_forward``,
-``extract_feats``, ``calibrated_cov``).
+``extract_feats``, ``calibrated_cov``, and ``train_forward`` for the
+training losses).
 
 backbone -> FPNplus -> RPN proposals -> bbox head + multiclass NMS ->
 [global head (MC) -> dim decode -> NOC head -> coord decode -> log-std
@@ -15,12 +16,14 @@ noc,score,pose}_head.*``), so a reference checkpoint loads with
 ``load_state_dict``.
 
 Randomness (the MC-dropout masks and the RANSAC keys) can be passed in as
-``HeadDraws``; what is not passed is drawn from the caller's generator.
+``HeadDraws``, and the training step's as ``TrainDraws``; what is not
+passed is drawn from the caller's generator.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -29,18 +32,31 @@ from torch import nn
 from ..coders import DimCoder, NOCCoder, ProjErrorCoder
 from ..config import MonoRUnConfig
 from ..data.pipeline import device_preprocess, scale_intrinsics
+from ..losses import (
+    kl_loss_mv, robust_kl_loss, sigmoid_bce_loss, smooth_l1_loss, softmax_ce_loss,
+)
+from ..ops.box_coder import delta_decode, delta_encode
+from ..ops.clip import clip
+from ..ops.geometry import project_points
+from ..ops.linalg_small import spd_inverse
 from ..ops.nms import NEG_INF, nms_rotated_bev
 from ..ops.pnp import PnPConfig, pnp_uncert
 from ..ops.roi_align import (
     align_strides, multilevel_roi_align_auto, prepare_pyramid, roi_grid_centers,
 )
+from ..ops.rotated_iou import bbox3d_overlaps_aligned
+from ..targets.assigner import AssignCfg, assign_max_iou
+from ..targets.dense_target import encode_noc_points, sparse_noc_targets
+from ..targets.rpn_targets import rpn_loss
+from ..targets.sampler import SampleResult, sample_rois
+from ..utils.draws import uniform
 from .bbox_head import BBoxHead, get_det_bboxes
 from .fpn import FPNplus
 from .global_head import GlobalHead, slice_pred
 from .noc_head import NOCHead
 from .resnet import ResNet
 from .rpn import RPNHead, get_proposals
-from .score_head import ScoreHead
+from .score_head import ScoreHead, iou3d_balanced_sample_weights, score_targets
 
 Tensor = torch.Tensor
 
@@ -62,6 +78,21 @@ class HeadDraws(NamedTuple):
 
     mc_masks: Optional[Tuple[Tensor, Tensor, Tensor]] = None  # global head
     ransac_keys: Optional[Tensor] = None                      # (B*K, H, n)
+
+
+class TrainDraws(NamedTuple):
+    """Random inputs of ``train_forward``; None entries are drawn from the
+    generator, on its own device (``utils/draws.py``), so one seeded CPU
+    generator gives a CPU and a GPU step the same draws. n = B *
+    train.max_pos positive slots."""
+
+    rpn_noise: Optional[Tuple[Tensor, Tensor]] = None    # (B, anchors) uniforms, pos / neg
+    rcnn_noise: Optional[Tuple[Tensor, Tensor]] = None   # (B, candidates) uniforms, pos / neg
+    rcnn_noise_refined: Optional[Tuple[Tensor, Tensor]] = None  # refined_reassign's re-sample
+    global_masks: Optional[Tuple[Tensor, Tensor, Tensor]] = None  # keep (n, C), (n, F), (n, F)
+    noc_mask: Optional[Tensor] = None                    # keep (n, C), the NOC dropout2d
+    ransac_keys: Optional[Tensor] = None                 # (n, hypotheses, points) uniforms
+    score_uniform: Optional[Tensor] = None               # (n,) score-sampling uniforms
 
 
 def compute_dtype(cfg: MonoRUnConfig) -> torch.dtype:
@@ -318,6 +349,297 @@ class MonoRUn(nn.Module):
             bboxes_3d=bboxes_3d, valid=final_valid, pose_cov=pose_cov_out,
             extras=extras,
         )
+
+
+    # ---- training ----------------------------------------------------------
+
+    def _sample(self, cfg, noise, cand_boxes, cand_valid, batch) -> SampleResult:
+        """R-CNN assignment and sampling of every image, stacked (B, ...)."""
+        tr = cfg.train
+        acfg = AssignCfg(
+            pos_iou_thr=tr.rcnn_pos_iou_thr, neg_iou_thr=tr.rcnn_neg_iou_thr,
+            min_pos_iou=tr.rcnn_min_pos_iou, ignore_iof_thr=tr.rcnn_ignore_iof_thr,
+        )
+        per_image = []
+        for b in range(cand_boxes.shape[0]):
+            res = assign_max_iou(
+                cand_boxes[b], cand_valid[b], batch["gt_boxes"][b], batch["gt_valid"][b],
+                batch["gt_labels"][b], acfg, ignore_boxes=batch["ignore_boxes"][b],
+                ignore_valid=batch["ignore_valid"][b],
+            )
+            per_image.append(sample_rois(
+                (noise[0][b], noise[1][b]), cand_boxes[b], res.assigned_gt, res.labels,
+                tr.rcnn_num_samples, tr.rcnn_pos_fraction, max_pos=tr.max_pos,
+            ))
+        return SampleResult(*(torch.stack(f) for f in zip(*per_image)))
+
+    def train_forward(
+        self,
+        batch: Dict[str, Tensor],
+        loss_ema: Tensor,
+        draws: TrainDraws = TrainDraws(),
+        generator: Optional[torch.Generator] = None,
+        cfg: Optional[MonoRUnConfig] = None,
+    ):
+        """Training losses of one batch (``monorun_tpu/models/detector.py:
+        _train_forward``), with the JAX package's gradient paths: the
+        proposals stay differentiable (through the regression targets, the
+        RoI grid and the aligns' RoI gradient), and the refinement deltas,
+        the PnP inputs and outputs, the IoUs and the calibration error carry
+        none. ``cfg`` overrides the model's config (the loss schedule).
+
+        batch: images (B, H, W, 3), cam (B, 3, 3), img_shapes (B, 2),
+        scale_factor (B, 2), crop_offset (B, 2), gt_boxes (B, G, 4),
+        gt_labels (B, G), gt_valid (B, G), ignore_boxes (B, I, 4),
+        ignore_valid (B, I), gt_bboxes_3d (B, G, 7) [l, h, w, x, y, z, ry],
+        flip (B,), uv (B, G, Q, 2), oc (B, G, Q, 3), pts_valid (B, G, Q).
+
+        Returns (total_loss, (losses and metrics, new_loss_ema))."""
+        cfg = self.cfg if cfg is None else cfg
+        tr = cfg.train
+        heads = self.roi_head
+        images = batch["images"]
+        B, H, W = images.shape[:3]
+        dev = images.device
+        pad_shape = (H, W)
+        K = cfg.bbox_head.num_classes
+        gt_boxes = batch["gt_boxes"]
+
+        def uniforms(shape):
+            return uniform(shape, generator, dev)
+
+        feats = self.extract_feats(images)
+        cls_scores, bbox_preds = self.rpn_head(feats[cfg.rpn.starting_level:])
+        n_anchors = sum(s[0].numel() for s in cls_scores)
+        rpn_noise = draws.rpn_noise or (uniforms((B, n_anchors)), uniforms((B, n_anchors)))
+        losses = rpn_loss(
+            rpn_noise, cls_scores, bbox_preds, gt_boxes, batch["gt_valid"],
+            batch["ignore_boxes"], batch["ignore_valid"], cfg.rpn, tr,
+        )
+        proposals, prop_valid = get_proposals(
+            cls_scores, bbox_preds, cfg.rpn, pad_shape, cfg.rpn.train_nms_pre,
+            cfg.rpn.nms_post, valid_shapes=batch["img_shapes"],
+        )
+
+        # ---- assign + sample, the GTs added as proposals ----------------------
+        cand_boxes = torch.cat([proposals, gt_boxes], 1)
+        cand_valid = torch.cat([prop_valid, batch["gt_valid"]], 1)
+        n_cand = cand_boxes.shape[1]
+        samp = self._sample(cfg, draws.rcnn_noise or (uniforms((B, n_cand)),
+                                                      uniforms((B, n_cand))),
+                            cand_boxes, cand_valid, batch)
+        P = tr.max_pos
+        Ns = tr.rcnn_num_samples
+        all_boxes = torch.cat([samp.pos_boxes, samp.neg_boxes], 1)
+        all_valid = torch.cat([samp.pos_valid, samp.neg_valid], 1)
+        batch_col = torch.arange(B, dtype=all_boxes.dtype, device=dev)
+        rois = torch.cat([batch_col.repeat_interleave(Ns)[:, None], all_boxes.reshape(-1, 4)], 1)
+        rs = cfg.bbox_head.roi_feat_size
+        roi_feats = self._align(feats, rois, cfg.bbox_head, (rs, rs), 24, None)
+        cls_logits, deltas = heads.bbox_head(roi_feats)
+
+        # ---- bbox head losses ----------------------------------------------
+        labels_all = torch.cat(
+            [samp.pos_labels, torch.full((B, Ns - P), K, dtype=samp.pos_labels.dtype,
+                                         device=dev)], 1).reshape(-1)
+        valid_flat = all_valid.reshape(-1)
+        n_total = valid_flat.sum()
+        losses["loss_cls"] = softmax_ce_loss(cls_logits, labels_all,
+                                             weight=valid_flat.float(), avg_factor=n_total)
+        pos_gt_boxes = torch.gather(gt_boxes, 1, samp.pos_gt_inds[..., None].expand(-1, -1, 4))
+        bh = cfg.bbox_head
+        reg_targets = delta_encode(samp.pos_boxes, pos_gt_boxes, bh.target_means,
+                                   bh.target_stds)                    # (B, P, 4)
+        deltas_k = deltas.reshape(B, Ns, K, 4)[:, :P]
+        pos_deltas = torch.gather(
+            deltas_k, 2, samp.pos_labels[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+        losses["loss_bbox"] = smooth_l1_loss(
+            pos_deltas, reg_targets, beta=1.0, weight=samp.pos_valid[..., None].float(),
+            avg_factor=n_total,
+        )
+
+        if tr.refined_reassign:
+            # cascade-style re-assign and re-sample against the class-refined
+            # boxes (the assigned class for positives, the predicted one for
+            # the rest), GT-sourced positives dropped, GTs appended again
+            deltas_sg = deltas.detach().reshape(B, Ns, K, 4)
+            pred_lbl = cls_logits.detach().reshape(B, Ns, -1)[..., :K].argmax(-1)
+            lbl_mat = labels_all.reshape(B, Ns)
+            roi_lbl = torch.where(lbl_mat == K, pred_lbl, lbl_mat)
+            sel_deltas = torch.gather(
+                deltas_sg, 2, roi_lbl[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+            refined_all = delta_decode(all_boxes, sel_deltas, bh.target_means,
+                                       bh.target_stds, max_shape=pad_shape)
+            pos_is_gt = samp.pos_inds >= proposals.shape[1]
+            refined_valid = torch.cat([samp.pos_valid & ~pos_is_gt, samp.neg_valid], 1)
+            cand2 = torch.cat([refined_all, gt_boxes], 1)
+            cand2_valid = torch.cat([refined_valid, batch["gt_valid"]], 1)
+            n2 = cand2.shape[1]
+            samp = self._sample(cfg, draws.rcnn_noise_refined or (uniforms((B, n2)),
+                                                                  uniforms((B, n2))),
+                                cand2, cand2_valid, batch)
+            pos_boxes = samp.pos_boxes
+        else:
+            # positive-RoI refinement by the assigned class, without gradient
+            # through the deltas
+            refined = delta_decode(samp.pos_boxes, pos_deltas.detach(), bh.target_means,
+                                   bh.target_stds, max_shape=pad_shape)
+            pos_boxes = torch.where(samp.pos_valid[..., None], refined, samp.pos_boxes)
+
+        # ---- 3D heads on the positive slots ----------------------------------
+        npos = B * P
+        pos_rois = torch.cat([batch_col.repeat_interleave(P)[:, None],
+                              pos_boxes.reshape(-1, 4)], 1)
+        flat_pos_valid = samp.pos_valid.reshape(-1)
+        flat_pos_labels = samp.pos_labels.reshape(-1)
+        pos_gt_3d = torch.gather(batch["gt_bboxes_3d"], 1,
+                                 samp.pos_gt_inds[..., None].expand(-1, -1, 7)).reshape(-1, 7)
+
+        reg_feats = self._align(feats, pos_rois, cfg.bbox_head, (rs, rs), 24, None)
+        gout = heads.global_head.forward_train(reg_feats, draws.global_masks, generator)
+        dim_enc, _, latent, _ = slice_pred(cfg.global_head, gout.dim_latent_pred, None,
+                                           flat_pos_labels)
+        dim_coder = DimCoder(cfg.global_head.dim_means, cfg.global_head.dim_stds)
+        dim_targets = dim_coder.encode(pos_gt_3d[:, :3], flat_pos_labels)
+        losses["loss_dim"] = smooth_l1_loss(dim_enc, dim_targets, beta=1.0,
+                                            weight=flat_pos_valid[:, None].float())
+        if tr.debug:
+            dim_enc = dim_targets     # head isolation: downstream sees GT dims
+
+        nh = cfg.noc_head
+        noc_feats = self._align(feats, pos_rois, nh, (nh.roi_size, nh.roi_size), 32, None)
+        flip_pos = batch["flip"].repeat_interleave(P)
+        noc_keep = draws.noc_mask
+        if noc_keep is None and nh.dropout2d_rate > 0:
+            noc_keep = uniforms((npos, noc_feats.shape[-1])) < 1.0 - nh.dropout2d_rate
+        nout = heads.noc_head(noc_feats, latent, flat_pos_labels, flip_pos, noc_keep)
+        noc_pred, proj_logstd_enc = nout.noc_pred, nout.proj_logstd
+        dsz = nh.dense_size
+        if nh.with_lidar_loss:
+            oc_enc = encode_noc_points(
+                batch["oc"], batch["gt_bboxes_3d"][:, :, None, :3],
+                batch["flip"][:, None, None], nh.noc_means, nh.noc_stds,
+            )                                                        # (B, G, Q, 3)
+            tg, wg = zip(*(sparse_noc_targets(
+                pos_boxes[b], samp.pos_valid[b], samp.pos_gt_inds[b], batch["uv"][b],
+                oc_enc[b], batch["pts_valid"][b], dsz) for b in range(B)))
+            tg = torch.stack(tg).reshape(-1, dsz, dsz, 3)
+            wg = torch.stack(wg).reshape(-1, dsz, dsz, 1)
+            losses["loss_noc"] = smooth_l1_loss(
+                nout.noc_pred, tg, beta=1.0,
+                weight=wg * flat_pos_valid[:, None, None, None].float(),
+            )
+            if tr.debug:
+                # head isolation: GT NOC targets, and a log-std from the
+                # target weights on both channels
+                noc_pred = tg
+                w_dbg = clip(wg, 1e-6, 1e6)
+                proj_logstd_enc = torch.broadcast_to(-torch.log(w_dbg),
+                                                     noc_pred.shape[:3] + (2,))
+
+        # ---- decode + projection loss ----------------------------------------
+        noc_coder = NOCCoder(nh.noc_means, nh.noc_stds)
+        dims, _ = dim_coder.decode(dim_enc, None, flat_pos_labels)
+        coords_3d, _ = noc_coder.decode(noc_pred, None, dims, None, flip_pos)
+        coords_2d_roi = roi_grid_centers(pos_rois, (dsz, dsz))
+        cams_pos = batch["cam"].repeat_interleave(P, 0)
+        shapes_pos = batch["img_shapes"].repeat_interleave(P, 0)
+        # the grid lives in augmented image coordinates and the 3D geometry in
+        # the original camera frame: undo flip, then crop, then resize
+        scale = batch["scale_factor"].repeat_interleave(P, 0)     # (n, 2) [sh, sw]
+        crop = batch["crop_offset"].repeat_interleave(P, 0)       # (n, 2) [x, y]
+        u_mirror = (shapes_pos[:, 1] - 1.0)[:, None, None]
+        u = coords_2d_roi[..., 0]
+        u = torch.where(flip_pos[:, None, None], u_mirror - u, u)
+        u = (u + crop[:, 0, None, None]) / scale[:, 1, None, None]
+        v = (coords_2d_roi[..., 1] + crop[:, 1, None, None]) / scale[:, 0, None, None]
+        coords_2d_roi = torch.stack([u, v], -1)
+        pose_gt = pos_gt_3d[:, 3:7]                                # [x, y, z, ry]
+        if cfg.projection_head.distance_mode == "z-depth":
+            distances = pos_gt_3d[:, 5:6]
+        else:
+            distances = torch.linalg.vector_norm(pos_gt_3d[:, 3:6], dim=1, keepdim=True)
+        ph = cfg.projection_head
+        coords_2d_proj = project_points(coords_3d, pose_gt, cams_pos, shapes_pos,
+                                        z_min=ph.z_min, allowed_border=ph.allowed_border)
+        proj_coder = ProjErrorCoder(ph.ref_length, ph.ref_focal_y, ph.target_std)
+        proj_error = proj_coder.encode(coords_2d_proj - coords_2d_roi, distances)
+        w_proj = flat_pos_valid[:, None, None, None].float().expand(proj_error.shape)
+        loss_proj, new_ema = robust_kl_loss(
+            proj_error, 0, proj_logstd_enc, loss_ema, weight=w_proj,
+            momentum=ph.loss_momentum, training=True,
+        )
+        losses["loss_proj"] = loss_proj * ph.loss_weight
+
+        # ---- pose (PnP, no gradient) + calibration loss ----------------------
+        proj_logstd_dec = proj_coder.decode_logstd(proj_logstd_enc, None, distances)
+        pose = cfg.pose_head
+        istd = torch.exp(-proj_logstd_dec) / pose.std_scale
+        border = pose.allowed_border
+        lo = torch.full((npos,), -border, device=dev)
+        u_range = torch.stack([lo, shapes_pos[:, 1] + border], -1)
+        v_range = torch.stack([lo, shapes_pos[:, 0] + border], -1)
+        roi_heights = coords_2d_roi[:, -1, 0, 1] - coords_2d_roi[:, 0, 0, 1]
+        pnp = pnp_uncert(
+            coords_2d_roi.reshape(npos, dsz * dsz, 2), istd.reshape(npos, dsz * dsz, 2),
+            coords_3d.detach().reshape(npos, dsz * dsz, 3), cams_pos, u_range, v_range,
+            ransac_thr=pose.epnp_ransac_thres_ratio * roi_heights,
+            ransac_keys=draws.ransac_keys,
+            cfg=PnPConfig(
+                z_min=pose.z_min, istd_thres=pose.epnp_istd_thres,
+                inlier_opt_only=pose.inlier_opt_only,
+                ransac_hypotheses=pose.ransac_hypotheses, lm_iters=pose.lm_iters,
+                exact_hessian=pose.forward_exact_hessian,
+            ),
+            generator=generator,
+        )
+        # a covariance that is not finite is replaced before the calibration,
+        # whose gradient carries the covariance's value
+        eye = torch.eye(4, device=dev)
+        pc0 = pnp.pose_cov.reshape(npos, -1)
+        pc_ok = torch.isfinite(pc0).all(-1) & (pc0.abs() < 1e18).all(-1)
+        pose_cov_calib = self.calibrated_cov(
+            torch.where(pc_ok[:, None, None], pnp.pose_cov, eye))
+        pose_ok = pnp.valid & flat_pos_valid & pc_ok
+
+        # score targets on predictions without gradient
+        ious = bbox3d_overlaps_aligned(
+            pos_gt_3d[:, [3, 4, 5, 0, 1, 2, 6]],
+            torch.cat([pnp.t_vec, dims, pnp.yaw], 1).detach(),
+        )
+        ious = torch.where(pose_ok, ious, torch.zeros_like(ious))
+        losses["mean_iou"] = (ious * flat_pos_valid).sum() / clip(flat_pos_valid.sum(), 1)
+
+        # loss_calib: weight 0 until the loss schedule switches it on
+        yaw_diff = (pnp.yaw[:, 0] - pose_gt[:, 3] + math.pi) % (2 * math.pi) - math.pi
+        diff = clip(torch.cat([yaw_diff[:, None], pnp.t_vec - pose_gt[:, :3]], 1), -1e6, 1e6)
+        cc0 = pose_cov_calib.detach().reshape(npos, -1)
+        cov_ok = torch.isfinite(cc0).all(-1) & (cc0.abs() < 1e18).all(-1)
+        safe_cov = torch.where(cov_ok[:, None, None], pose_cov_calib,
+                               torch.zeros_like(pose_cov_calib))
+        inv_cov = spd_inverse(safe_cov + eye)
+        losses["loss_calib"] = kl_loss_mv(
+            diff.detach(), 0, inv_cov, weight=(pose_ok & cov_ok)[:, None].float(),
+        ) * pose.loss_calib_weight
+
+        # ---- score head ------------------------------------------------------
+        score_cov = pose_cov_calib if tr.calib_scoring else pnp.pose_cov
+        logits = heads.score_head(gout.reg_fc_out.to(self.dtype), pnp.yaw, pnp.t_vec,
+                                  score_cov, dims, train=True, valid=pose_ok)
+        targets = score_targets(cfg.score_head, ious)
+        score_uniform = draws.score_uniform
+        if score_uniform is None:
+            score_uniform = uniforms(ious.shape)
+        samp_w = iou3d_balanced_sample_weights(cfg.score_head, ious, score_uniform,
+                                               valid=pose_ok)
+        samp_w = samp_w / clip(samp_w.mean(), 1e-2)
+        losses["loss_score"] = sigmoid_bce_loss(
+            logits[:, None], targets[:, None], weight=samp_w[:, None],
+            avg_factor=pose_ok.sum(),
+        )
+
+        total = sum(v for k, v in losses.items() if k.startswith("loss"))
+        return total, (losses, new_ema)
 
 
 def init_random_weights(model: MonoRUn, generator: torch.Generator) -> MonoRUn:

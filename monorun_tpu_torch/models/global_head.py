@@ -1,6 +1,5 @@
 """Global 3D head: per-RoI dimensions and latent vector with Monte-Carlo
-dropout, the PyTorch counterpart of ``monorun_tpu/models/global_head.py``
-(inference only).
+dropout, the PyTorch counterpart of ``monorun_tpu/models/global_head.py``.
 
 The reference replicates every RoI 50x through always-on dropout. As in
 the JAX package the sampling is factored: channel dropout commutes with
@@ -12,6 +11,10 @@ of sample s is sum_c m[s, n, c] * P[n, c]; one fc1 pass plus a small
 The masks are inputs: ``forward(..., masks=(m2d, m0, m1))`` takes the
 pre-scaled {0, 1/keep} masks of the channel dropout (n, S, C) and of the
 two FC dropouts (n, S, F); without them they are drawn from ``generator``.
+
+Training (``forward_train``) takes one dropout sample: channel dropout on
+the fc0 input and dropout after each FC, from keep masks (n, C), (n, F),
+(n, F) given as inputs (``train_dropout_masks`` draws them).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import GlobalHeadConfig
+from ..utils.draws import uniform
 from .layers import Linear
 
 Tensor = torch.Tensor
@@ -48,6 +52,22 @@ def mc_dropout_masks(
     keep2d = 1.0 - cfg.dropout2d_rate
     keep = 1.0 - cfg.dropout_rate
     return draw((n, S, C), keep2d), draw((n, S, Fo), keep), draw((n, S, Fo), keep)
+
+
+def train_dropout_masks(
+    cfg: GlobalHeadConfig, n: int, device,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Keep masks of one training sample: (n, C) channels, then (n, F) for
+    each FC's output."""
+    C, Fo = cfg.in_channels, cfg.fc_out_channels
+
+    def draw(shape, keep):
+        return uniform(shape, generator, device) < keep
+
+    keep2d = 1.0 - cfg.dropout2d_rate
+    keep = 1.0 - cfg.dropout_rate
+    return draw((n, C), keep2d), draw((n, Fo), keep), draw((n, Fo), keep)
 
 
 class GlobalHead(nn.Module):
@@ -87,6 +107,31 @@ class GlobalHead(nn.Module):
         return GlobalHeadOutput(
             out.mean(1), out.var(1, unbiased=True), h.mean(1).float()
         )
+
+    def forward_train(
+        self,
+        roi_feats: Tensor,                                  # (n, 7, 7, C)
+        masks: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> GlobalHeadOutput:
+        """One dropout sample (``monorun_tpu`` ``GlobalHead(train=True)``):
+        the prediction and the last FC's activations, no variance."""
+        c = self.cfg
+        n, fh, fw, ch = roi_feats.shape
+        dt = roi_feats.dtype
+        if masks is None:
+            masks = train_dropout_masks(c, n, roi_feats.device, generator)
+        m2d, m0, m1 = (m.to(dt) for m in masks)
+        keep2d = 1.0 - c.dropout2d_rate
+        keep = 1.0 - c.dropout_rate
+        fc0, fc1 = self.fcs
+        xt = roi_feats.permute(0, 3, 1, 2).reshape(n, ch, fh * fw)
+        h = F.relu(fc0((xt * m2d[:, :, None] / keep2d).reshape(n, -1)))
+        h = h * m0 / keep
+        h = F.relu(fc1(h))
+        h = h * m1 / keep
+        out = self.fc_reg(h)
+        return GlobalHeadOutput(out.float(), None, h.float())
 
 
 def slice_pred(

@@ -1,17 +1,18 @@
-"""Dense NOC decoder (inference): 14x14 RoI features -> 28x28 NOC map and
-aleatoric log-std; the PyTorch counterpart of
-``monorun_tpu/models/noc_head.py``.
+"""Dense NOC decoder: 14x14 RoI features -> 28x28 NOC map and aleatoric
+log-std; the PyTorch counterpart of ``monorun_tpu/models/noc_head.py``.
 
 Three 3x3 convs, additive latent-vector injection through a linear layer,
 CARAFE 2x upsampling, one post-upsample conv, and a final 1x1 conv whose
 output holds, per flip bank, the class-major NOC channels (3 per class)
 then the log-std channels (2 per class); each RoI reads the bank of its
-flip flag and the block of its label.
+flip flag and the block of its label. In training a channel dropout
+(``dropout2d_rate``) acts on the RoI features, from a keep mask (n, C)
+given as an input.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -64,9 +65,13 @@ class NOCHead(nn.Module):
         latent: Tensor,        # (n, L)
         labels: Tensor,        # (n,) int
         flip: Tensor,          # (n,) bool
+        dropout_keep: Optional[Tensor] = None,   # (n, C) bool, training
     ) -> NOCHeadOutput:
         c = self.cfg
         n = roi_feats.shape[0]
+        if dropout_keep is not None and c.dropout2d_rate > 0:
+            keep = 1.0 - c.dropout2d_rate
+            roi_feats = roi_feats * dropout_keep[:, None, None, :].to(roi_feats.dtype) / keep
         x = nchw(roi_feats)
         for conv in self.convs:
             x = F.relu(conv(x))

@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .clip import clip
+
 Tensor = torch.Tensor
 
 
@@ -181,3 +183,27 @@ def exact_hessian(
             for i in range(4)
         ]
     return torch.stack(rows, dim=1).detach()
+
+
+def project_points(
+    coords_3d: Tensor,       # (n, h, w, 3) object-frame coords
+    pose: Tensor,            # (n, 4): [tx, ty, tz, yaw]
+    cam_intrinsic: Tensor,   # (n, 3, 3)
+    img_shapes: Tensor,      # (n, 2) [h, w]
+    z_min: float = 0.5,
+    allowed_border: float = 200.0,
+) -> Tensor:
+    """Dense-map projection of the projection loss (train time): (n, h, w,
+    2) pixel coordinates, depth clipped at z_min and (u, v) to the image
+    grown by the border, with ``jnp.clip``'s gradient."""
+    n, h, w, _ = coords_3d.shape
+    rot = yaw_rotation_matrix(pose[..., 3])                   # (n, 3, 3)
+    proj_r = cam_intrinsic @ rot
+    proj_t = (cam_intrinsic @ pose[..., :3, None])[..., 0]    # (n, 3)
+    pts = coords_3d.reshape(n, h * w, 3)
+    uvz = torch.einsum("bux,bnx->bnu", proj_r, pts) + proj_t[:, None, :]
+    uv = uvz[..., :2] / clip(uvz[..., 2:3], z_min)
+    uv_max = img_shapes[:, None, [1, 0]] + allowed_border     # (n, 1, 2)
+    uv = clip(uv, -allowed_border)
+    uv = torch.minimum(uv, uv_max)
+    return uv.reshape(n, h, w, 2)

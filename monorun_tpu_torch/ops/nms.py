@@ -47,6 +47,19 @@ def bbox_iou_matrix(boxes_a: Tensor, boxes_b: Tensor) -> Tensor:
     return inter / union.clamp(min=1e-8)
 
 
+def bbox_iof_matrix(boxes_a: Tensor, boxes_b: Tensor) -> Tensor:
+    """Intersection over the area of a (ignore-region matching),
+    (n, 4) x (k, 4) -> (n, k)."""
+    area_a = (boxes_a[:, 2] - boxes_a[:, 0]).clamp(min=0) * (
+        boxes_a[:, 3] - boxes_a[:, 1]
+    ).clamp(min=0)
+    lt = torch.maximum(boxes_a[:, None, :2], boxes_b[None, :, :2])
+    rb = torch.minimum(boxes_a[:, None, 2:], boxes_b[None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / area_a[:, None].clamp(min=1e-8)
+
+
 def _suppression(iou: Tensor, iou_thr: float) -> Tensor:
     """sup[..., j, i]: j ranks before i and overlaps it above iou_thr."""
     n = iou.shape[-1]

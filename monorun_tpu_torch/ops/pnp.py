@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.draws import uniform
 from .geometry import (
     approx_hessian, exact_hessian, gn_normal_equations, yaw_rotation_matrix,
 )
@@ -249,10 +250,8 @@ def pnp_uncert(
         if ransac_thr is not None:
             if ransac_keys is None:
                 b, n = valid0.shape
-                ransac_keys = torch.rand(
-                    (b, cfg.ransac_hypotheses, n), generator=generator,
-                    device=coords_2d.device,
-                )
+                ransac_keys = uniform((b, cfg.ransac_hypotheses, n), generator,
+                                      coords_2d.device)
             yaw0, t0, inlier = ransac_yaw_pnp(
                 ransac_keys, coords_2d, istd, valid0, coords_3d, cam_mats,
                 ransac_thr, cfg,

@@ -25,7 +25,12 @@ kernels (``roi_align_tile.py``, ``roi_align_band.py``).
 the ``MONORUN_BAND_*`` switches as the JAX package's dispatcher does
 (``align_choice``). On CUDA tensors it launches a hand-written kernel
 (``roi_align_cuda.py``) and raises if it cannot; on CPU tensors every
-setting runs the plain gather version.
+setting runs the plain gather version. Gradients: the plain version's
+autograd gives those of ``jax.grad`` through the JAX function, in the
+levels and in the RoIs; the direct kernel (the ``kernel`` route) has its
+own backward kernel (``roi_align_cuda.roi_align_direct``); the staged
+kernels are forward-only and refuse inputs that require grad
+(``refuse_grad``).
 
 Layout is channels-last: levels (B, H_l, W_l, C), output (n, oh, ow, C).
 """
@@ -36,6 +41,8 @@ import os
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from .clip import clip
 
 Tensor = torch.Tensor
 
@@ -52,6 +59,17 @@ def _div(x: Tensor, d: float) -> Tensor:
     bilinear weights enough to show in bfloat16 outputs, and in ``ceil``
     it can change a sample grid. The CUDA kernel divides."""
     return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
+def refuse_grad(route: str, features: Sequence[Tensor], rois: Tensor) -> None:
+    """Raise if autograd would need a gradient through a forward-only
+    kernel route: grad is enabled and a level or the RoIs require it."""
+    if torch.is_grad_enabled() and (
+            rois.requires_grad or any(f.requires_grad for f in features)):
+        raise RuntimeError(
+            f"the {route} RoIAlign route has no backward: run it without grad "
+            "(torch.no_grad or inference_mode) or use the direct kernel "
+            "(MONORUN_ALIGN_IMPL=auto or sorted), which has one")
 
 
 def align_strides(lazy_lower: bool, strides: Sequence[int]) -> Tuple[int, ...]:
@@ -165,8 +183,8 @@ def sample_taps(
     xs, ys, avg_w = _sample_grid(boxes, out_size, max_ratio)
 
     valid = (ys >= -1.0) & (ys <= Hn) & (xs >= -1.0) & (xs <= Wn)
-    y = torch.minimum(ys.clamp(min=0.0), (Hn - 1).float())
-    x = torch.minimum(xs.clamp(min=0.0), (Wn - 1).float())
+    y = clip(ys, 0.0, (Hn - 1).float())
+    x = clip(xs, 0.0, (Wn - 1).float())
     y0 = torch.floor(y)
     x0 = torch.floor(x)
     ly, lx = y - y0, x - x0
@@ -504,8 +522,10 @@ def multilevel_roi_align_auto(
     tile_h: int = 24,
     pyramid=None,
 ) -> Tensor:
-    """The serving path's align, dispatched by ``align_choice``; the same
-    function on every route (long-span cap ``LONG_SPAN_CAP``). ``tile_h``
+    """The align of the detector, dispatched by ``align_choice``; the same
+    function on every route (long-span cap ``LONG_SPAN_CAP``). The
+    ``gather`` and ``kernel`` routes are differentiable in the levels and
+    the RoIs; the staged routes raise under grad. ``tile_h``
     is the staged kernels' tile height, rounded up to 32 rows on the
     16-row grid as on the TPU; ``pyramid`` is ``prepare_pyramid`` of the
     same features."""
@@ -516,12 +536,10 @@ def multilevel_roi_align_auto(
             max_ratio=max_ratio, long_span_cap=LONG_SPAN_CAP,
         )
     if choice.impl == "kernel":
-        from .roi_align_cuda import roi_align_kernel
+        from .roi_align_cuda import roi_align_direct
 
-        return roi_align_kernel(
-            [f.contiguous() for f in features], rois.float().contiguous(),
-            strides, out_size, finest_scale, max_ratio, LONG_SPAN_CAP,
-        )
+        return roi_align_direct(features, rois, strides, out_size, finest_scale,
+                                max_ratio, LONG_SPAN_CAP)
     from .roi_align_band import multilevel_roi_align_band
 
     tile_h = ((max(tile_h, 32) + 15) // 16) * 16

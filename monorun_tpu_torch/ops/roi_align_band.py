@@ -43,7 +43,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from .roi_align import axis_interp_matrix
+from .roi_align import axis_interp_matrix, refuse_grad
 from .roi_align_tile import (
     COL_BLK, MAX_TH, MAX_TW, ROW_BLK, FlatPyramid, TileCall, prepare_flat_pyramid,
     roi_tile_geometry, staged_align_plain,
@@ -373,6 +373,7 @@ def multilevel_roi_align_band(
     """Band-sweep RoIAlign; same function as ``roi_align.multilevel_roi_align``
     with the span cap ``Tw - 18``, up to the rounding of the interpolation
     weights (and of the row product under ``t1_dtype``)."""
+    refuse_grad("band", features, rois)
     plain_band = not (matmul or tiered or (packed and kroi % KPACK == 0))
     if rois.is_cuda and plain_band:
         from .roi_align_cuda import roi_align_kernel

@@ -13,6 +13,9 @@ Kernels, each with a ``launches`` count (one per call that launches it):
 * ``roi_align_kernel`` (``csrc/roi_align.cu``): the direct kernel, port of
   the band and sorted TPU kernels (``RoIAlignKernel(source=...)`` binds
   another build of the same C interface, for an A/B on the card);
+* ``roi_align_backward_kernel`` (``csrc/roi_align_bwd.cu``): its gradient
+  with respect to the levels and the RoIs; ``roi_align_direct`` is the two
+  as a ``torch.autograd.Function``, the one differentiable kernel route;
 * ``tile_kernel`` (``csrc/roi_align_tile.cu``): per-RoI tier tiles;
 * ``band_tiered_kernel`` (``csrc/roi_align_band.cu``): tier-uniform band
   blocks;
@@ -146,6 +149,42 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _level_args(features: Sequence[Tensor], strides: Sequence[int], max_ratio: int):
+    """The checked level pointers and (H, W, batch, row, column strides) of
+    the direct kernels' C interface."""
+    levels = len(features)
+    f0 = features[0]
+    if not 1 <= levels <= MAX_LEVELS or len(strides) != levels:
+        raise ValueError(f"need 1..{MAX_LEVELS} levels with one stride each")
+    if not 1 <= max_ratio <= MAX_RATIO:
+        raise ValueError(f"max_ratio must be 1..{MAX_RATIO}, not {max_ratio}")
+    if f0.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"features must be float32 or bfloat16, not {f0.dtype}")
+    if not f0.is_cuda:
+        raise ValueError("the RoIAlign kernel needs CUDA tensors")
+    B, C = f0.shape[0], f0.shape[-1]
+    vec = 16 // f0.element_size()
+    if C % vec:
+        raise ValueError(f"channels ({C}) must be a multiple of {vec}")
+    ptrs, dims = [], []
+    for f in features:
+        if f.dim() != 4 or f.shape[0] != B or f.shape[-1] != C:
+            raise ValueError("levels must all be (B, H, W, C) with one B and C")
+        if f.dtype != f0.dtype or f.device != f0.device:
+            raise ValueError("levels must share dtype and device")
+        sb, sh, sw, sc = f.stride()
+        if sc != 1 or f.data_ptr() % 16 or sb % vec or sh % vec or sw % vec:
+            raise ValueError(
+                "each level needs unit channel stride, 16-byte alignment "
+                "and strides that are multiples of 16 bytes"
+            )
+        if ((f.shape[1] - 1) * sh + (f.shape[2] - 1) * sw + C) * f.element_size() >= 2 ** 31:
+            raise ValueError("a level's image must span fewer than 2^31 bytes")
+        ptrs.append(f.data_ptr())
+        dims += [f.shape[1], f.shape[2], sb, sh, sw]
+    return ptrs, dims
+
+
 class RoIAlignKernel:
     """Callable wrapper around the direct kernel, with a launch count;
     ``source`` builds another file of the same C interface instead (an
@@ -222,36 +261,10 @@ class RoIAlignKernel:
         long_span_cap: Optional[float],
     ) -> Tensor:
         """Same function as ``roi_align.multilevel_roi_align``."""
-        levels = len(features)
         f0 = features[0]
-        if not 1 <= levels <= MAX_LEVELS or len(strides) != levels:
-            raise ValueError(f"need 1..{MAX_LEVELS} levels with one stride each")
-        if not 1 <= max_ratio <= MAX_RATIO:
-            raise ValueError(f"max_ratio must be 1..{MAX_RATIO}, not {max_ratio}")
-        if f0.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"features must be float32 or bfloat16, not {f0.dtype}")
-        if not f0.is_cuda:
-            raise ValueError("the RoIAlign kernel needs CUDA tensors")
+        levels = len(features)
+        ptrs, dims = _level_args(features, strides, max_ratio)
         B, C = f0.shape[0], f0.shape[-1]
-        vec = 16 // f0.element_size()
-        if C % vec:
-            raise ValueError(f"channels ({C}) must be a multiple of {vec}")
-        ptrs, dims = [], []
-        for f in features:
-            if f.dim() != 4 or f.shape[0] != B or f.shape[-1] != C:
-                raise ValueError("levels must all be (B, H, W, C) with one B and C")
-            if f.dtype != f0.dtype or f.device != f0.device:
-                raise ValueError("levels must share dtype and device")
-            sb, sh, sw, sc = f.stride()
-            if sc != 1 or f.data_ptr() % 16 or sb % vec or sh % vec or sw % vec:
-                raise ValueError(
-                    "each level needs unit channel stride, 16-byte alignment "
-                    "and strides that are multiples of 16 bytes"
-                )
-            if ((f.shape[1] - 1) * sh + (f.shape[2] - 1) * sw + C) * f.element_size() >= 2 ** 31:
-                raise ValueError("a level's image must span fewer than 2^31 bytes")
-            ptrs.append(f.data_ptr())
-            dims += [f.shape[1], f.shape[2], sb, sh, sw]
         if (rois.dim() != 2 or rois.shape[1] != 5 or rois.dtype != torch.float32
                 or not rois.is_contiguous() or rois.device != f0.device):
             raise ValueError("rois must be a contiguous (n, 5) float32 tensor "
@@ -285,6 +298,184 @@ class RoIAlignKernel:
 
 
 roi_align_kernel = RoIAlignKernel()
+
+
+class RoIAlignBackwardKernel:
+    """Callable wrapper around the direct kernel's backward
+    (``csrc/roi_align_bwd.cu``), with a launch count: the gradients of
+    ``RoIAlignKernel``'s function with respect to the levels and the RoIs."""
+
+    def __init__(self):
+        self.launches = 0
+        self.build_log = ""
+        self._lib = None
+
+    def build(self) -> ctypes.CDLL:
+        """Build every kernel (unless built) and bind this one."""
+        if self._lib is not None:
+            return self._lib
+        lib = build_all()["roi_align_bwd"]
+        self.build_log = build_all.log
+        lib.roi_align_backward.argtypes = [
+            ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_longlong),
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+        lib.roi_align_backward.restype = ctypes.c_int
+        lib.roi_align_backward_shape.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.roi_align_backward_shape.restype = ctypes.c_int
+        lib.roi_align_backward_attributes.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        lib.roi_align_backward_attributes.restype = ctypes.c_int
+        lib.roi_align_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.roi_align_bwd_error_string.restype = ctypes.c_char_p
+        self._lib = lib
+        return lib
+
+    def _check(self, rc: int, what: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f"{what} failed: "
+                               + self._lib.roi_align_bwd_error_string(rc).decode())
+
+    def attributes(self) -> Dict[str, Dict[str, int]]:
+        """Registers and local memory bytes per thread of the backward kernel
+        in each dtype, from the loaded build."""
+        lib = self.build()
+        usage = {}
+        for name, is_bf16 in (("bfloat16", 1), ("float32", 0)):
+            regs, local = ctypes.c_int(), ctypes.c_int()
+            self._check(lib.roi_align_backward_attributes(
+                is_bf16, ctypes.byref(regs), ctypes.byref(local)), "attributes query")
+            usage[name] = dict(registers=regs.value, local_bytes=local.value)
+        return usage
+
+    def launch_shape(self, n: int, out_size: Tuple[int, int]) -> Dict[str, int]:
+        """Warps per block and blocks per RoI (along blockIdx.y) of a call."""
+        lib = self.build()
+        warps, split = ctypes.c_int(), ctypes.c_int()
+        self._check(lib.roi_align_backward_shape(n, out_size[0], out_size[1],
+                                                 ctypes.byref(warps), ctypes.byref(split)),
+                    "shape query")
+        return dict(warps=warps.value, split=split.value)
+
+    def __call__(
+        self,
+        features: Sequence[Tensor],   # per level (B, H_l, W_l, C), as the forward's
+        rois: Tensor,                 # (n, 5) float32
+        grad_out: Tensor,             # (n, oh, ow, C) in the features' dtype
+        strides: Sequence[int],
+        out_size: Tuple[int, int],
+        finest_scale: float,
+        max_ratio: int,
+        long_span_cap: Optional[float],
+        need_features: bool = True,
+        need_rois: bool = True,
+    ) -> Tuple[Optional[list], Optional[Tensor]]:
+        """(d levels in the levels' dtype, d rois (n, 5) float32 with a zero
+        batch column); either is None when not asked for."""
+        levels = len(features)
+        f0 = features[0]
+        ptrs, dims = _level_args(features, strides, max_ratio)
+        B, C = f0.shape[0], f0.shape[-1]
+        oh, ow = out_size
+        n = rois.shape[0]
+        if (rois.dim() != 2 or rois.shape[1] != 5 or rois.dtype != torch.float32
+                or not rois.is_contiguous() or rois.device != f0.device):
+            raise ValueError("rois must be a contiguous (n, 5) float32 tensor "
+                             "on the features' device")
+        if (tuple(grad_out.shape) != (n, oh, ow, C) or grad_out.dtype != f0.dtype
+                or not grad_out.is_contiguous() or grad_out.device != f0.device
+                or grad_out.data_ptr() % 16):
+            raise ValueError("grad_out must be a contiguous, 16-byte aligned "
+                             f"{(n, oh, ow, C)} tensor in the levels' dtype and device")
+        sizes = [f.shape[1] * f.shape[2] * B * C for f in features]
+        offsets = [sum(sizes[:i]) for i in range(levels)]
+        scratch = (torch.zeros(sum(sizes), dtype=torch.float32, device=f0.device)
+                   if need_features else None)
+        d_rois = None
+        if n > 0:
+            lib = self.build()
+            split = self.launch_shape(n, out_size)["split"] if need_rois else 1
+            partial = (torch.empty((split, n, 4), dtype=torch.float32, device=f0.device)
+                       if need_rois else None)
+            inv_strides = (ctypes.c_float * levels)(*[1.0 / s for s in strides])
+            with torch.cuda.device(f0.device):
+                rc = lib.roi_align_backward(
+                    int(f0.dtype == torch.bfloat16), levels,
+                    (ctypes.c_void_p * levels)(*ptrs),
+                    (ctypes.c_longlong * len(dims))(*dims), inv_strides,
+                    (ctypes.c_longlong * levels)(*offsets),
+                    rois.data_ptr(), grad_out.data_ptr(),
+                    scratch.data_ptr() if scratch is not None else None,
+                    partial.data_ptr() if partial is not None else None,
+                    n, B, C, oh, ow, int(max_ratio), float(finest_scale),
+                    float(long_span_cap * strides[0]) if long_span_cap else 0.0,
+                    _stream(f0.device),
+                )
+            self._check(rc, "RoIAlign backward kernel launch")
+            self.launches += 1
+            if need_rois:
+                d_rois = torch.cat([partial.new_zeros(n, 1), partial.sum(0)], 1)
+        elif need_rois:
+            d_rois = torch.zeros((0, 5), dtype=torch.float32, device=f0.device)
+        d_levels = None
+        if need_features:
+            d_levels = [scratch[o:o + sz].view(f.shape).to(f.dtype)
+                        for f, o, sz in zip(features, offsets, sizes)]
+        return d_levels, d_rois
+
+
+roi_align_backward_kernel = RoIAlignBackwardKernel()
+
+
+class _DirectAlign(torch.autograd.Function):
+    """The direct kernel as a differentiable function of the levels and the
+    RoIs: forward ``roi_align_kernel``, backward
+    ``roi_align_backward_kernel``."""
+
+    @staticmethod
+    def forward(ctx, spec, rois, *features):
+        ctx.spec = spec
+        ctx.save_for_backward(rois, *features)
+        return roi_align_kernel(features, rois, *spec)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        rois, *features = ctx.saved_tensors
+        need_rois = ctx.needs_input_grad[1]
+        need_features = any(ctx.needs_input_grad[2:])
+        d_levels, d_rois = roi_align_backward_kernel(
+            features, rois, grad_out.contiguous(), *ctx.spec,
+            need_features=need_features, need_rois=need_rois)
+        d_levels = d_levels or [None] * len(features)
+        return (None, d_rois, *[d if ctx.needs_input_grad[2 + i] else None
+                                for i, d in enumerate(d_levels)])
+
+
+def roi_align_direct(
+    features: Sequence[Tensor],   # per level (B, H_l, W_l, C), NHWC, CUDA
+    rois: Tensor,                 # (n, 5)
+    strides: Sequence[int],
+    out_size: Tuple[int, int],
+    finest_scale: float,
+    max_ratio: int,
+    long_span_cap: Optional[float],
+) -> Tensor:
+    """The direct kernel with its gradient: the same function as
+    ``roi_align.multilevel_roi_align``, differentiable in the levels and
+    the RoIs on CUDA tensors (the backward is ``csrc/roi_align_bwd.cu``).
+    CPU tensors raise: the plain version is ``multilevel_roi_align``."""
+    if not (rois.is_cuda and all(f.is_cuda for f in features)):
+        raise ValueError("the direct RoIAlign kernel needs CUDA tensors; on the CPU "
+                         "use roi_align.multilevel_roi_align")
+    spec = (tuple(strides), tuple(out_size), float(finest_scale), int(max_ratio),
+            long_span_cap)
+    return _DirectAlign.apply(spec, rois.float().contiguous(),
+                              *[f.contiguous() for f in features])
 
 
 # ---- staged kernels ---------------------------------------------------------

@@ -27,7 +27,9 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .roi_align import _div, assign_fpn_levels, axis_interp_matrix, separable_interp
+from .roi_align import (
+    _div, assign_fpn_levels, axis_interp_matrix, refuse_grad, separable_interp,
+)
 
 Tensor = torch.Tensor
 
@@ -280,6 +282,8 @@ def multilevel_roi_align_tile(
     ``monorun_tpu/ops/roi_align_pallas.py:multilevel_roi_align_pallas``;
     same function as ``roi_align.multilevel_roi_align`` with the span cap
     ``Tw - 18``, up to the rounding of Y and X to the features' dtype.
-    ``pyramid`` is ``prepare_flat_pyramid`` of the same features."""
+    ``pyramid`` is ``prepare_flat_pyramid`` of the same features.
+    Forward-only: inputs that require grad raise under grad."""
+    refuse_grad("tile", features, rois)
     return run_tile_call(prepare_tile_call(features, rois, strides, out_size, finest_scale,
                                            max_ratio, tile_hw, pyramid))

@@ -118,3 +118,21 @@ def rotated_iou(boxes_a: Tensor, boxes_b: Tensor) -> Tensor:
     area_b = boxes_b[..., 2] * boxes_b[..., 3]
     denom = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / denom.clamp(min=1e-8)
+
+
+def bbox3d_overlaps_aligned(boxes: Tensor, qboxes: Tensor, z_center: float = 1.0) -> Tensor:
+    """Element-wise camera-frame 3D IoU of (n, 7) [x, y, z, l, h, w, ry]
+    boxes: BEV rotated intersection times the height overlap over the
+    union of volumes; y points down and boxes are bottom-origin."""
+    bev = [0, 2, 3, 5, 6]
+    inter_bev = rotated_intersection_area(boxes[:, bev], qboxes[:, bev])
+    y_a, h_a = boxes[:, 1], boxes[:, 4]
+    y_b, h_b = qboxes[:, 1], qboxes[:, 4]
+    top = torch.minimum(y_a + h_a * (1 - z_center), y_b + h_b * (1 - z_center))
+    bot = torch.maximum(y_a - h_a * z_center, y_b - h_b * z_center)
+    ih = (top - bot).clamp(min=0.0)
+    vol_a = boxes[:, 3:6].prod(1)
+    vol_b = qboxes[:, 3:6].prod(1)
+    inter = ih * inter_bev
+    iou = inter / (vol_a + vol_b - inter).clamp(min=1e-6)
+    return iou.clamp(0.0, 1.0)

@@ -10,6 +10,12 @@
   (``monorun_tpu/utils/checkpoint.py``): the table below is this package's
   own copy of its key rules, read from the JAX side; conv kernels go
   HWIO -> OIHW and dense kernels (in, out) -> (out, in).
+  ``from_jax_train_state`` also carries a JAX ``TrainState``'s step and
+  ``loss_ema``; the optimizer moments are not carried (both packages start
+  them at zero).
+* ``to_jax_leaves`` goes the other way for any tensors keyed like the
+  state dict (parameters or their gradients): JAX leaf path -> array, for
+  comparing the two packages leaf by leaf.
 """
 
 from __future__ import annotations
@@ -117,6 +123,30 @@ def from_jax_params(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
                 value = np.transpose(value, (1, 0))           # (in, out) -> (out, in)
             state[key] = torch.from_numpy(np.array(value, np.float32))
     return state
+
+
+def from_jax_train_state(state) -> Tuple[Dict[str, torch.Tensor], float, int]:
+    """A JAX ``TrainState`` (its ``params``, ``batch_stats``, ``loss_ema``
+    and ``step``, as numpy) -> (the port's state dict, loss_ema, step)."""
+    return (from_jax_params(state.params, state.batch_stats),
+            float(np.asarray(state.loss_ema)), int(np.asarray(state.step)))
+
+
+def to_jax_leaves(tensors: Mapping[str, torch.Tensor], jax_paths
+                  ) -> Dict[str, np.ndarray]:
+    """Tensors keyed like the port's state dict (parameters, buffers or
+    gradients) -> {JAX leaf path: array in the JAX layout} for the given
+    leaf paths ("backbone/conv1/kernel", ...)."""
+    out = {}
+    for path in jax_paths:
+        key, kind = _torch_key(path)
+        value = tensors[key].detach().float().cpu().numpy()
+        if kind == "conv":
+            value = np.transpose(value, (2, 3, 1, 0))         # OIHW -> HWIO
+        elif kind == "fc":
+            value = np.transpose(value, (1, 0))
+        out[path] = value
+    return out
 
 
 def load_pth(model: nn.Module, path: str) -> nn.Module:

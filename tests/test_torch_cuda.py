@@ -13,6 +13,14 @@ kernels (tile, band tiered, band packed, band matmul) are held to their
 plain version on the same prepared inputs with the same tolerances; with
 the row product rounded to bfloat16 (matmul, ``t1_dtype``) one rounding
 of t1 more, 2^-8 max|x|.
+
+The direct kernel's backward (``csrc/roi_align_bwd.cu``) is held to the
+plain version's autograd in float32 on the same (upcast) inputs and output
+gradient: the level gradients to 1e-5 relative in float32 and one
+bfloat16 rounding (2^-7) in bfloat16, the RoI gradients (float32 in both)
+to 1e-4 relative; with an absolute floor of 1e-5 (levels) and 1e-4
+(RoIs) of the gradient's largest entry: the summation order of float32
+atomics and of channel sums over hundreds of taps.
 """
 
 import numpy as np
@@ -576,3 +584,185 @@ def test_tile_kernel_matches_plain_on_edges(cuda_device, dtype, case):
     feats, call = _tile_call(case, cuda_device, dtype)
     _tile_case_holds(case, call)
     _check_staged(rc.tile_kernel, call, rt.tile_call_plain(call), feats)
+
+
+# ---- the direct kernel's backward -------------------------------------------
+
+STRIDES5 = (4, 4, 8, 16, 32)
+
+
+def _pyramid5(device, dtype, B=2, H=64, W=128, C=32, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(B, H // s, W // s, C)).astype(np.float32))
+            .to(device, dtype) for s in STRIDES5]
+
+
+def _level_rois(device, n=60, B=2, H=64, W=128, seed=0):
+    """RoIs whose sides span 2 to 120 pixels (every level at finest scale
+    4), slivers, RoIs past the map and the special cases."""
+    rng = np.random.default_rng(seed)
+    side = 2.0 * 60.0 ** rng.uniform(0, 1, n)
+    aspect = 4.0 ** rng.uniform(-1, 1, n)
+    w, h = side * np.sqrt(aspect), side / np.sqrt(aspect)
+    x1, y1 = rng.uniform(-8, W - 2, n), rng.uniform(-8, H - 2, n)
+    rand = np.stack([rng.integers(0, B, n), x1, y1, x1 + w, y1 + h], 1).astype(np.float32)
+    return torch.from_numpy(np.concatenate([rand, SPECIAL])).to(device)
+
+
+def _plain_grads(feats, rois, strides, out_size, finest, max_ratio, grad_out):
+    """The plain version's autograd in float32 on the upcast inputs:
+    (d levels, d rois)."""
+    f32 = [f.detach().float().requires_grad_() for f in feats]
+    r32 = rois.detach().float().requires_grad_()
+    out = ra.multilevel_roi_align(f32, r32, strides, out_size, finest, max_ratio=max_ratio,
+                                  long_span_cap=ra.LONG_SPAN_CAP)
+    grads = torch.autograd.grad(out, f32 + [r32], grad_out.float())
+    return list(grads[:-1]), grads[-1]
+
+
+def _grad_close(got, ref, rtol, atol_rel):
+    """|got - ref| <= rtol |ref| + atol_rel max |ref|."""
+    got, ref = got.float(), ref.float()
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    torch.testing.assert_close(got, ref, rtol=rtol, atol=atol_rel * scale)
+
+
+def _check_backward(feats, rois, strides, out_size, finest, max_ratio, seed=0):
+    """The backward kernel once, against the plain version's autograd."""
+    dtype = feats[0].dtype
+    gen = torch.Generator(device=feats[0].device).manual_seed(seed)
+    grad_out = torch.randn((rois.shape[0],) + tuple(out_size) + (feats[0].shape[-1],),
+                           generator=gen, device=feats[0].device).to(dtype)
+    before = rc.roi_align_backward_kernel.launches
+    d_levels, d_rois = rc.roi_align_backward_kernel(
+        feats, rois, grad_out, strides, out_size, finest, max_ratio, ra.LONG_SPAN_CAP)
+    torch.cuda.synchronize()
+    assert rc.roi_align_backward_kernel.launches == before + int(rois.shape[0] > 0)
+    ref_levels, ref_rois = _plain_grads(feats, rois, strides, out_size, finest, max_ratio,
+                                        grad_out)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for got, ref in zip(d_levels, ref_levels):
+        assert got.dtype == dtype and got.shape == ref.shape
+        _grad_close(got, ref.to(dtype), rtol, 1e-5)
+    assert d_rois.dtype == torch.float32 and d_rois.shape == rois.shape
+    assert bool((d_rois[:, 0] == 0).all())
+    _grad_close(d_rois, ref_rois, 1e-4, 1e-4)
+    return d_levels, d_rois
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "out_size,finest,max_ratio",
+    [((7, 7), 4.0, 3), ((7, 7), 10.0, 6), ((14, 14), 4.0, 2), ((14, 14), 14.0, 4)],
+)
+def test_backward_matches_plain_autograd(cuda_device, dtype, out_size, finest, max_ratio):
+    """Every level of a five-level lazy pyramid, slivers, RoIs past the
+    map, samples on the last row and column, zero-size slots."""
+    feats = _pyramid5(cuda_device, dtype)
+    rois = _level_rois(cuda_device)
+    d_levels, _ = _check_backward(feats, rois, STRIDES5, out_size, finest, max_ratio)
+    if finest == 4.0:
+        assert all(bool(d.abs().sum() > 0) for d in d_levels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [64, 128, 256])
+@pytest.mark.parametrize("n", [1, 3, 300])
+def test_backward_launch_shapes(cuda_device, dtype, C, n):
+    """Channel vectors per lane, and the bins of few RoIs dealt over
+    blockIdx.y (the RoI gradient summed over the blocks)."""
+    feats = _pyramid5(cuda_device, dtype, C=C, seed=3)
+    rois = _level_rois(cuda_device, n=n, seed=3)[:n]
+    if n < 10:
+        assert rc.roi_align_backward_kernel.launch_shape(n, (7, 7))["split"] > 1
+    _check_backward(feats, rois, STRIDES5, (7, 7), 4.0, 3, seed=n)
+    _check_backward(feats, rois, STRIDES5, (14, 14), 4.0, 2, seed=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_contended_taps(cuda_device, dtype):
+    """Hundreds of RoIs on the same taps: the atomics of every bin meet on
+    one level cell."""
+    feats = _pyramid5(cuda_device, dtype, seed=4)
+    base = torch.tensor([[0, 10.0, 10.0, 40.0, 30.0], [1, 60.0, 20.0, 61.0, 21.0]],
+                        device=cuda_device)
+    rois = base.repeat(200, 1)
+    _check_backward(feats, rois, STRIDES5, (7, 7), 10.0, 3, seed=4)
+
+
+@pytest.mark.cuda
+def test_backward_takes_no_rois(cuda_device):
+    feats = _pyramid5(cuda_device, torch.float32)
+    rois = torch.zeros((0, 5), device=cuda_device)
+    grad_out = torch.zeros((0, 7, 7, feats[0].shape[-1]), device=cuda_device)
+    before = rc.roi_align_backward_kernel.launches
+    d_levels, d_rois = rc.roi_align_backward_kernel(
+        feats, rois, grad_out, STRIDES5, (7, 7), 4.0, 3, ra.LONG_SPAN_CAP)
+    assert rc.roi_align_backward_kernel.launches == before
+    assert d_rois.shape == (0, 5) and all(not bool(d.any()) for d in d_levels)
+
+
+@pytest.mark.cuda
+def test_backward_keeps_every_value_in_registers(cuda_device):
+    attributes = rc.roi_align_backward_kernel.attributes()
+    assert set(attributes) == {"bfloat16", "float32"}
+    for a in attributes.values():
+        assert a["local_bytes"] == 0 and a["registers"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_direct_route_is_differentiable(cuda_device, dtype):
+    """The dispatcher's default route on tensors that require grad: one
+    forward and one backward launch of the direct kernels, the gradients
+    of the plain version's autograd; levels alone or RoIs alone too."""
+    feats = [f.requires_grad_() for f in _pyramid5(cuda_device, dtype, seed=5)]
+    rois = _level_rois(cuda_device, seed=5).requires_grad_()
+    counts = (roi_align_kernel.launches, rc.roi_align_backward_kernel.launches)
+    out = ra.multilevel_roi_align_auto(feats, rois, STRIDES5, (7, 7), 4.0, max_ratio=3)
+    assert out.grad_fn is not None
+    grad_out = torch.randn_like(out)
+    grads = torch.autograd.grad(out, feats + [rois], grad_out)
+    assert (roi_align_kernel.launches, rc.roi_align_backward_kernel.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    ref_levels, ref_rois = _plain_grads(feats, rois, STRIDES5, (7, 7), 4.0, 3, grad_out)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for got, ref in zip(grads[:-1], ref_levels):
+        _grad_close(got, ref.to(dtype), rtol, 1e-5)
+    _grad_close(grads[-1], ref_rois, 1e-4, 1e-4)
+    for inputs in (feats, [rois]):
+        out = ra.multilevel_roi_align_auto(
+            [f if inputs is feats else f.detach() for f in feats],
+            rois if inputs is not feats else rois.detach(), STRIDES5, (7, 7), 4.0,
+            max_ratio=3)
+        part = torch.autograd.grad(out, inputs, grad_out)
+        tol = (rtol, 1e-5) if inputs is feats else (1e-4, 1e-4)
+        for got, ref in zip(part, ref_levels if inputs is feats else [ref_rois]):
+            _grad_close(got, ref.to(got.dtype), *tol)
+
+
+@pytest.mark.cuda
+def test_staged_routes_refuse_grad_on_cuda(cuda_device, monkeypatch):
+    feats = [f.requires_grad_() for f in _pyramid(cuda_device, torch.bfloat16)]
+    rois = _rois(cuda_device)
+    monkeypatch.setenv("MONORUN_ALIGN_IMPL", "bandmm")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ra.multilevel_roi_align_auto(feats, rois, STRIDES, (7, 7), 10.0, max_ratio=3)
+    with torch.no_grad():
+        ra.multilevel_roi_align_auto(feats, rois, STRIDES, (7, 7), 10.0, max_ratio=3)
+
+
+def test_backward_wrapper_refuses_cpu_tensors():
+    """Checks that run before any build or launch."""
+    kernel = rc.RoIAlignBackwardKernel()
+    feats = _pyramid5("cpu", torch.float32)
+    rois = _level_rois("cpu")
+    grad_out = torch.zeros((rois.shape[0], 7, 7, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(feats, rois, grad_out, STRIDES5, (7, 7), 4.0, 3, ra.LONG_SPAN_CAP)
+    with pytest.raises(ValueError, match="CUDA"):
+        rc.roi_align_direct(feats, rois, STRIDES5, (7, 7), 4.0, 3, ra.LONG_SPAN_CAP)
+    assert kernel.launches == 0 and kernel._lib is None

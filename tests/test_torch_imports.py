@@ -19,7 +19,10 @@ BLOCKED = ("jax", "jaxlib", "flax", "monorun_tpu")
 
 def test_port_imports_with_jax_and_reference_blocked():
     names = [m.name for m in pkgutil.walk_packages([str(PKG)], "monorun_tpu_torch.")]
-    assert "monorun_tpu_torch.apis.inference" in names
+    for name in ("apis.inference", "targets", "targets.assigner", "targets.sampler",
+                 "targets.rpn_targets", "targets.dense_target", "losses", "train",
+                 "utils.synthetic"):
+        assert f"monorun_tpu_torch.{name}" in names, name
     code = (
         "import sys\n"
         f"for name in {BLOCKED!r}:\n"
