@@ -81,14 +81,39 @@ Phases, each printing its own lines:
    seeded CPU generator (``utils/draws.py``): every
    loss and every parameter's gradient compared, and the share of
    rpn_reg's gradient that comes by the proposals (the RoI path);
-12. a ``kernels`` JSON line (the registers and local memory bytes per
+12. evaluation: a mini-KITTI of 16 random 375x1242 PNGs in KITTI's calib
+   and label layout (under the git-ignored ``build/``), then
+   ``python -m monorun_tpu_torch.tools.test kitti_multiclass --val-set``
+   run in-process at full width, batch 4, with ``--result-dir`` and
+   ``--summary-file``: 16 result files, every AP key of the evaluator and
+   each finite, exactly 3 direct-kernel launches per batch and none of
+   another kernel, the first batch's three aligns (4000 proposals, 192
+   detections) against the plain version on their own features and RoIs
+   (with times as in phase 3); img/s over the whole ``run_eval`` (loading included),
+   ms per batch of ``InferenceSession.run`` (host clock, synchronised),
+   and the host's parts, each timed alone: decode, normalise and pad,
+   the pinned upload of a batch, the detections' copy back, the evaluator
+   (its native library built or loaded before the timed window, and that
+   time printed apart);
+13. the tiny float32 configuration (``test_scale`` 0.1) through
+   ``run_eval`` on the same 16 images on the GPU and on the CPU, with the
+   same weights and per-batch draws: validity masks and labels equal,
+   results within phase 5's tolerances, the same AP dict; then again on
+   labels made from the CPU's results, where that AP dict is not all 0;
+14. ``python -m monorun_tpu_torch.demo.infer_imgs --device cuda`` on 4 of
+   those PNGs: 4 visualisations, 3 direct-kernel launches per image, the
+   first image's three aligns (batch 1: 1000 proposals, 48 detections)
+   against the plain version (with times as in phase 3);
+15. a ``kernels`` JSON line (the registers and local memory bytes per
    thread and dtype of the direct kernel, its backward and the four
    staged kernels, as the loaded build reports them, among their keys;
-   local memory, a spill, fails the run) and, last, the JSON result line.
+   local memory, a spill, fails the run; each path's launches of the
+   direct kernel and its backward under ``launches_by_path``) and, last,
+   the JSON result line.
 
-Every path (phases 4, 7, 8 and 10) runs with all launch counts set to 0
-just before it and read just after; a kernel that its path did not launch
-fails the run.
+Every path (phases 4, 7, 8, 10, 12 and 14) runs with all launch counts
+set to 0 just before it and read just after; a kernel that its path did
+not launch fails the run.
 
 Tolerances (kernel against plain version; both accumulate in float32):
 bfloat16 |d| <= 2^-7 |ref| + 1e-5 max(1, max|ref|), one bfloat16 rounding
@@ -133,9 +158,12 @@ Any failed phase, or no GPU, exits non-zero without the last line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -144,9 +172,18 @@ from pathlib import Path
 
 import torch
 
-from monorun_tpu_torch.apis.inference import init_inference
+from monorun_tpu_torch.apis.inference import (
+    InferenceSession, detections_to_host, init_inference,
+)
+from monorun_tpu_torch.apis.test import run_eval
 from monorun_tpu_torch.config import get_config
-from monorun_tpu_torch.data.pipeline import device_preprocess
+from monorun_tpu_torch.data.kitti import KITTI3DDataset
+from monorun_tpu_torch.data.pipeline import (
+    collate, device_preprocess, load_image, prepare_test_sample,
+)
+from monorun_tpu_torch.demo import infer_imgs
+from monorun_tpu_torch.eval import _native as kitti_native
+from monorun_tpu_torch.eval.kitti_eval import kitti_eval
 from monorun_tpu_torch.models.detector import (
     HeadDraws, MonoRUn, init_random_weights,
 )
@@ -158,6 +195,7 @@ from monorun_tpu_torch.ops import roi_align_cuda as rc
 from monorun_tpu_torch.ops import roi_align_tile as rt
 from monorun_tpu_torch.ops.roi_align_cuda import roi_align_kernel
 from monorun_tpu_torch.tools import micro_bench
+from monorun_tpu_torch.tools import test as tools_test
 from monorun_tpu_torch.tools.micro_bench import align_env, card_line, device_ms
 
 HBM_BYTES_PER_S = 3.35e12
@@ -204,6 +242,32 @@ def check(ok: bool, what: str) -> None:
 
 
 # ---- kernel against plain version --------------------------------------
+
+
+@contextlib.contextmanager
+def patched(owner, name, value):
+    """``owner.name`` set to ``value``, restored afterwards."""
+    saved = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, saved)
+
+
+def wall_ms(fn, reps=5, sync=True):
+    """Median host-clock ms of ``fn`` over ``reps`` calls, each synchronised
+    with the card before and after when ``sync``."""
+    times = []
+    for _ in range(reps):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if sync:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def max_err(got: torch.Tensor, ref: torch.Tensor):
@@ -421,6 +485,49 @@ def read_counts() -> dict:
     return {KERNEL_NAMES[k]: k.launches for k in ALL_KERNELS}
 
 
+def check_recorded_aligns(what, recorded, cfg, flush, ab=()):
+    """One forward's three aligns, as recorded: each output against the
+    plain version on the same features and RoIs, then the kernel timed
+    against it there (``compare_align``). Returns (records, the calls)."""
+    recs, calls = [], []
+    labels = ("proposals 7x7", "detections 7x7", "detections 14x14")
+    with torch.inference_mode():
+        for label, (feats, rois, head_cfg, out_size, _, out) in zip(labels, recorded):
+            n_lvl = len(head_cfg.featmap_strides)
+            strides = ra.align_strides(cfg.neck.lazy_lower, head_cfg.featmap_strides)
+            feats = [f.contiguous() for f in feats[:n_lvl]]
+            rois = rois.float().contiguous()
+            plain = ra.multilevel_roi_align(
+                feats, rois, strides, out_size, head_cfg.finest_scale,
+                max_ratio=head_cfg.align_max_ratio, long_span_cap=ra.LONG_SPAN_CAP)
+            err, ok = max_err(out, plain)
+            print(f"{what} align {label}: the kernel's output against plain "
+                  f"version, max abs error {err}", flush=True)
+            check(ok, f"the {what}'s {label} align disagrees with the plain version")
+            recs.append(compare_align(f"{what} {label}", feats, rois, strides, out_size,
+                                      head_cfg.finest_scale, head_cfg.align_max_ratio,
+                                      flush, ab=ab))
+            calls.append((label, feats, rois, strides, out_size, head_cfg.finest_scale,
+                          head_cfg.align_max_ratio, recs[-1]))
+    return recs, calls
+
+
+@contextlib.contextmanager
+def recording_aligns(recorded, n=3):
+    """Every model's ``_align`` keeps its first ``n`` calls as (feats, rois,
+    head_cfg, out_size, pyramid, out)."""
+    align = MonoRUn._align
+
+    def record(self, feats, rois, head_cfg, out_size, tile_h, pyramid):
+        out = align(self, feats, rois, head_cfg, out_size, tile_h, pyramid)
+        if len(recorded) < n:
+            recorded.append((feats, rois, head_cfg, out_size, pyramid, out))
+        return out
+
+    with patched(MonoRUn, "_align", record):
+        yield
+
+
 def serve_requests(sess, requests, record=False):
     """Serves each request, synchronised; returns (ms each, detections,
     the first forward's aligns as (feats, rois, head_cfg, out_size,
@@ -456,7 +563,8 @@ def check_launches(counts: dict, per_forward: dict, forwards: int, what: str) ->
 
 
 def phase_serve(cfg, flush, dev, card, profile, ab=()):
-    sess = init_inference("kitti_multiclass", batch_size=BATCH, device="cuda", seed=0)
+    sess = init_inference("kitti_multiclass", batch_size=BATCH, device="cuda", seed=0,
+                          raw=True)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(1)
     requests = [kitti_inputs(cfg, BATCH, gen, dev) for _ in range(REQUESTS + 2)]
@@ -481,26 +589,7 @@ def phase_serve(cfg, flush, dev, card, profile, ab=()):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
     )), flush=True)
 
-    recs, calls = [], []
-    labels = ("proposals 7x7", "detections 7x7", "detections 14x14")
-    with torch.inference_mode():
-        for label, (feats, rois, head_cfg, out_size, _, out) in zip(labels, recorded):
-            n_lvl = len(head_cfg.featmap_strides)
-            strides = ra.align_strides(cfg.neck.lazy_lower, head_cfg.featmap_strides)
-            feats = [f.contiguous() for f in feats[:n_lvl]]
-            rois = rois.float().contiguous()
-            plain = ra.multilevel_roi_align(
-                feats, rois, strides, out_size, head_cfg.finest_scale,
-                max_ratio=head_cfg.align_max_ratio, long_span_cap=ra.LONG_SPAN_CAP)
-            err, ok = max_err(out, plain)
-            print(f"serve align {label}: forward's kernel output against plain "
-                  f"version, max abs error {err}", flush=True)
-            check(ok, f"the forward's {label} align disagrees with the plain version")
-            recs.append(compare_align(f"forward {label}", feats, rois, strides, out_size,
-                                      head_cfg.finest_scale, head_cfg.align_max_ratio,
-                                      flush, ab=ab))
-            calls.append((label, feats, rois, strides, out_size, head_cfg.finest_scale,
-                          head_cfg.align_max_ratio, recs[-1]))
+    recs, calls = check_recorded_aligns("forward", recorded, cfg, flush, ab)
     del recorded
 
     if profile:
@@ -998,16 +1087,6 @@ def profile_serve(sess, requests, ms_per_batch, table_path):
     model, cfg = sess.model, sess.cfg
     raw, cam, shapes = requests[0]
 
-    def wall_ms(fn, reps=5):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
     with torch.inference_mode():
         images, img_shapes = device_preprocess(raw, shapes, cfg.data)
         feats = model.extract_feats(images)
@@ -1015,8 +1094,9 @@ def profile_serve(sess, requests, ms_per_batch, table_path):
         stages = dict(
             preprocess=wall_ms(lambda: device_preprocess(raw, shapes, cfg.data)),
             backbone_neck=wall_ms(lambda: model.extract_feats(images)),
-            heads=wall_ms(lambda: model.heads_forward(feats, cam, img_shapes, pad,
-                                                      generator=sess.generator)),
+            heads=wall_ms(lambda: model.heads_forward(
+                feats, cam, img_shapes, pad,
+                generator=torch.Generator(device=sess.device).manual_seed(0))),
         )
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1068,6 +1148,22 @@ def tiny_config():
     )
 
 
+def head_draws(cfg, n, gen):
+    """The MC-dropout masks and RANSAC keys of n head slots, drawn on the
+    CPU from ``gen``, so a GPU and a CPU run can be given the same draws."""
+    gh = cfg.global_head
+
+    def mask(shape, keep):
+        return torch.where(torch.rand(shape, generator=gen) < keep, 1.0 / keep, 0.0)
+
+    masks = (mask((n, gh.mc_samples, cfg.neck.out_channels), 1 - gh.dropout2d_rate),
+             mask((n, gh.mc_samples, gh.fc_out_channels), 1 - gh.dropout_rate),
+             mask((n, gh.mc_samples, gh.fc_out_channels), 1 - gh.dropout_rate))
+    keys = torch.rand((n, cfg.pose_head.ransac_hypotheses, cfg.noc_head.dense_size ** 2),
+                      generator=gen)
+    return HeadDraws(masks, keys)
+
+
 def phase_tiny():
     """The same tiny model, weights and draws on the GPU and on the CPU:
     labels and validity exact, 2D outputs to 1e-4 and 3D outputs to 1e-3
@@ -1078,24 +1174,16 @@ def phase_tiny():
     raw = torch.randint(0, 256, (B, 64, 128, 3), generator=gen, dtype=torch.uint8)
     cam = torch.tensor([[70.0, 0, 64], [0, 70.0, 32], [0, 0, 1]]).expand(B, 3, 3)
     shapes = torch.tensor([[60.0, 120.0], [64.0, 128.0]])
-    gh = cfg.global_head
-    n_pts = cfg.noc_head.dense_size ** 2
-
-    def mask(shape, keep):
-        return torch.where(torch.rand(shape, generator=gen) < keep, 1.0 / keep, 0.0)
-
-    masks = (mask((B * K, gh.mc_samples, cfg.neck.out_channels), 1 - gh.dropout2d_rate),
-             mask((B * K, gh.mc_samples, gh.fc_out_channels), 1 - gh.dropout_rate),
-             mask((B * K, gh.mc_samples, gh.fc_out_channels), 1 - gh.dropout_rate))
-    keys = torch.rand((B * K, cfg.pose_head.ransac_hypotheses, n_pts), generator=gen)
+    cpu_draws = head_draws(cfg, B * K, gen)
 
     out = {}
     for device in ("cpu", "cuda"):
-        sess = init_inference(cfg, batch_size=B, device=device, seed=7)
+        sess = init_inference(cfg, batch_size=B, device=device, seed=7, raw=True)
         d = torch.device(device)
-        draws = HeadDraws(tuple(m.to(d) for m in masks), keys.to(d))
+        draws = HeadDraws(tuple(m.to(d) for m in cpu_draws.mc_masks),
+                          cpu_draws.ransac_keys.to(d))
         before = roi_align_kernel.launches
-        det = sess.run(raw.to(d), cam.to(d), shapes.to(d), draws)
+        det = sess.run(raw.to(d), cam.to(d), shapes.to(d), draws=draws)
         out[device] = to_cpu(det)
         if device == "cuda":
             check(roi_align_kernel.launches == before + 3,
@@ -1119,6 +1207,287 @@ def to_cpu(det):
     """Detections moved to the CPU, without the debug maps."""
     return det._replace(**{k: v.cpu() for k, v in det._asdict().items()
                            if isinstance(v, torch.Tensor)}, extras={})
+
+
+# ---- evaluation: tools.test on a mini-KITTI --------------------------------
+
+EVAL_IMAGES = 16
+EVAL_BATCH = 4
+EVAL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_eval"
+KITTI_FX, KITTI_CX, KITTI_CY = 721.5377, 609.5593, 172.854   # a KITTI P2
+OBJECT_HWL = {"Car": (1.5, 1.7, 4.0), "Pedestrian": (1.75, 0.6, 0.8),
+              "Cyclist": (1.7, 0.6, 1.8)}
+
+
+def write_mini_kitti(root: Path, n: int, seed: int) -> None:
+    """n random 375x1242 PNGs in KITTI's layout: ``calib/`` with P0-P3 (P2
+    with the camera's baseline offset), ``label_2/`` with 15 columns per
+    object (cars, pedestrians, cyclists, DontCare regions) and the list
+    ``train_list.txt``."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for sub in ("image_2", "label_2", "calib"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    fx, cx, cy = KITTI_FX, KITTI_CX, KITTI_CY
+    ids = [f"{i:06d}" for i in range(n)]
+    for name in ids:
+        cv2.imwrite(str(root / "image_2" / f"{name}.png"),
+                    rng.integers(0, 256, (375, 1242, 3), dtype=np.uint8))
+        (root / "calib" / f"{name}.txt").write_text("".join(
+            f"P{c}: {fx} 0 {cx} {-0.06 * fx if c == 2 else 0.0} 0 {fx} {cy} 0 0 0 1 0\n"
+            for c in range(4)))
+        lines = []
+        for _ in range(int(rng.integers(1, 5))):
+            cls = str(rng.choice(["Car", "Pedestrian", "Cyclist", "DontCare"],
+                                 p=[0.6, 0.15, 0.15, 0.1]))
+            h3, w3, l3 = OBJECT_HWL.get(cls, OBJECT_HWL["Car"])
+            z, u = rng.uniform(8, 35), rng.uniform(100, 1140)
+            x, y, ry = (u - cx) * z / fx, rng.uniform(1.2, 1.8), rng.uniform(-np.pi, np.pi)
+            v, bw, bh = fx * y / z + cy, fx * l3 / z, fx * h3 / z
+            x1, y1, x2, y2 = max(u - bw / 2, 0), max(v - bh, 0), min(u + bw / 2, 1241), min(v, 374)
+            box = f"{x1:.2f} {y1:.2f} {x2:.2f} {y2:.2f}"
+            if cls == "DontCare":
+                lines.append(f"DontCare -1 -1 -10 {box} -1 -1 -1 -1000 -1000 -1000 -10")
+                continue
+            alpha = ry - np.arctan2(x, z + 0.27)
+            lines.append(f"{cls} 0.00 0 {alpha:.2f} {box} {h3:.2f} {w3:.2f} {l3:.2f} "
+                         f"{x:.2f} {y:.2f} {z:.2f} {ry:.2f}")
+        (root / "label_2" / f"{name}.txt").write_text("\n".join(lines) + "\n")
+    (root / "train_list.txt").write_text("\n".join(ids) + "\n")
+
+
+class RecordingDataset(KITTI3DDataset):
+    """Keeps the per-image results and the time of ``evaluate``."""
+
+    def evaluate(self, results, **kw):
+        self.results = results
+        t0 = time.perf_counter()
+        out = super().evaluate(results, **kw)
+        self.evaluate_ms = (time.perf_counter() - t0) * 1e3
+        return out
+
+
+def timed(owner, name, times, sync=False):
+    """``owner.name`` timed on the host clock (synchronised with ``sync``),
+    each call's ms kept in ``times``; restored afterwards."""
+    fn = getattr(owner, name)
+
+    def wrapper(*args, **kw):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    return patched(owner, name, wrapper)
+
+
+def phase_eval(card, flush):
+    """``python -m monorun_tpu_torch.tools.test kitti_multiclass --val-set``,
+    in-process, on a mini-KITTI of 16 images at full width, batch 4: 16
+    result files, every AP key of the evaluator and each finite, 3 launches
+    of the direct kernel per batch and none of another; img/s over the
+    whole eval, ms per batch of ``session.run``, and the host's parts;
+    the first batch's aligns against the plain version. The timed window
+    runs under ``recording_aligns`` (it keeps the first batch's pyramid)
+    and synchronises the card around each ``session.run``. The native
+    evaluator is built (or loaded) before it, and its time printed apart:
+    a fresh checkout compiles it at first use."""
+    built = not kitti_native.lib_path().exists()
+    t0 = time.perf_counter()
+    lib = kitti_native.get_lib()
+    native_s = time.perf_counter() - t0
+    check(lib is not None, "the native KITTI evaluator did not build or load")
+    print(f"eval native evaluator {kitti_native.lib_path().name} "
+          f"{'built' if built else 'loaded'} in {native_s:.3f} s", flush=True)
+    root = EVAL_DIR / "kitti"
+    write_mini_kitti(root, EVAL_IMAGES, seed=21)
+    results, summary = EVAL_DIR / "results", EVAL_DIR / "ap.json"
+    argv = ["kitti_multiclass", "--val-set", "--batch-size", str(EVAL_BATCH),
+            "--result-dir", str(results), "--summary-file", str(summary),
+            "--cfg-options", f"data.train_root='{root}'", "data.val_list='train_list.txt'"]
+    run_ms, eval_ms, sessions, datasets, recorded = [], [], [], [], []
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(align_env({}))
+        stack.enter_context(recording_aligns(recorded))
+        stack.enter_context(timed(InferenceSession, "run", run_ms, sync=True))
+        stack.enter_context(timed(tools_test, "run_eval", eval_ms))
+        stack.enter_context(patched(tools_test, "KITTI3DDataset",
+                                    keeping(RecordingDataset, datasets)))
+        stack.enter_context(patched(tools_test, "init_inference",
+                                    keeping(init_inference, sessions)))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        ap = tools_test.main(argv)
+        tool_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak_mem_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    check_launches(counts, {"roi_align": 3}, batches, "eval (tools.test)")
+    check(len(run_ms) == batches, f"tools.test ran {len(run_ms)} batches, expected {batches}")
+    files = sorted(p.name for p in results.iterdir())
+    check(len(files) == EVAL_IMAGES, f"tools.test wrote {len(files)} result files, "
+                                     f"expected {EVAL_IMAGES}")
+    _, want = kitti_eval([], [], get_config("kitti_multiclass").data.classes)
+    check(list(ap) == list(want), f"the AP keys {sorted(ap)} are not the evaluator's "
+                                  f"{sorted(want)}")
+    check(all(math.isfinite(v) for v in ap.values()), "an AP value is not finite")
+    check(json.loads(summary.read_text()) == ap, "the summary file is not the AP dict")
+    ds = datasets[0]
+    n_valid = [int(r["valid"].sum()) for r in ds.results]
+    sess = sessions[0]
+    cfg = sess.cfg
+    recs, _ = check_recorded_aligns("eval", recorded, cfg, flush)
+    del recorded
+
+    # the host's parts, each timed alone after the eval (in the eval the
+    # loader's thread overlaps decode and normalise with the device)
+    paths = [ds.image_path(i) for i in range(EVAL_IMAGES)]
+    decode = wall_ms(lambda: [load_image(p, cfg.data.to_rgb) for p in paths], 3, sync=False)
+    prepare = wall_ms(lambda: [prepare_test_sample(ds, i, cfg.data)
+                               for i in range(EVAL_IMAGES)], 3, sync=False)
+    batch = collate([prepare_test_sample(ds, i, cfg.data) for i in range(EVAL_BATCH)])
+
+    def upload():
+        for k in ("images", "cam", "img_shapes"):
+            sess.upload(batch[k], None if k == "images" else torch.float32)
+
+    upload_ms = wall_ms(upload, 5)
+    det = sess.run(batch["images"], batch["cam"], batch["img_shapes"])
+    torch.cuda.synchronize()
+    to_host_ms = wall_ms(lambda: detections_to_host(det), 5)
+    whole_ms = eval_ms[0]
+    # prepare_test_sample: decode, the annotation, resize, normalise, pad
+    parts = dict(prepare_test_sample=prepare, upload=upload_ms * batches,
+                 to_host=to_host_ms * batches, evaluator=ds.evaluate_ms,
+                 session_run=sum(run_ms))
+    print("eval " + json.dumps(dict(
+        config="kitti_multiclass", card=card, images=EVAL_IMAGES, batch=EVAL_BATCH,
+        img_per_s=EVAL_IMAGES * 1e3 / whole_ms, run_eval_ms=whole_ms, tools_test_s=tool_s,
+        run_ms_each=run_ms, run_ms_median=statistics.median(run_ms),
+        run_ms_median_after_first=statistics.median(run_ms[1:]),
+        native_evaluator_s=native_s, native_evaluator_built=built,
+        host_parts_ms=parts, share_of_run_eval={k: v / whole_ms for k, v in parts.items()},
+        decode_ms=decode,
+        upload_bytes_per_batch=int(sum(batch[k].nbytes for k in ("images", "cam", "img_shapes"))),
+        valid_detections=n_valid, ap_keys=len(ap), ap_max=max(ap.values()),
+        peak_mem_gib=peak_mem_gib,
+    )), flush=True)
+    del sess, sessions, det, batch
+    torch.cuda.empty_cache()
+    return counts, root, recs
+
+
+def keeping(make, made):
+    """``make``, keeping in ``made`` what each call returns."""
+    def wrapper(*args, **kw):
+        made.append(make(*args, **kw))
+        return made[-1]
+    return wrapper
+
+
+def tiny_eval_pair(cfg, root, what):
+    """``run_eval`` of ``cfg`` on the KITTI directory ``root`` on the CPU and
+    on the GPU, with the same weights and, per batch, the draws of a CPU
+    generator seeded with the batch's seed: validity masks and labels
+    equal, results within phase 5's tolerances, the same AP dict, 3
+    direct-kernel launches per GPU batch. Returns (the CPU's dataset, its
+    AP dict, the results' largest errors relative to scale)."""
+    K = cfg.test.head_slots
+    out = {}
+    for device in ("cpu", "cuda"):
+        sess = init_inference(cfg, batch_size=EVAL_BATCH, device=device, seed=7)
+        run, dev = sess.run, sess.device
+
+        def seeded(images, cam, shapes, seed=0, run=run, dev=dev):
+            d = head_draws(cfg, len(images) * K, torch.Generator().manual_seed(seed))
+            return run(images, cam, shapes, seed=seed, draws=HeadDraws(
+                tuple(m.to(dev) for m in d.mc_masks), d.ransac_keys.to(dev)))
+
+        sess.run = seeded
+        ds = RecordingDataset(str(root), "train_list.txt")
+        start = read_counts()
+        ap = run_eval(sess, ds, batch_size=EVAL_BATCH, print_summary=False, progress=False)
+        if device == "cuda":
+            step = {k: v - start[k] for k, v in read_counts().items()}
+            check_launches(step, {"roi_align": 3}, -(-EVAL_IMAGES // EVAL_BATCH),
+                           f"tiny eval, {what}")
+        out[device] = (ds, ap)
+    (cpu, ap_cpu), (gpu, ap_gpu) = out["cpu"], out["cuda"]
+    errs = {}
+    for i, (c, g) in enumerate(zip(cpu.results, gpu.results)):
+        check((c["valid"] == g["valid"]).all() and (c["labels"] == g["labels"]).all(),
+              f"tiny eval, {what}: image {i}'s validity or labels differ GPU vs CPU")
+        for name, rtol in (("bboxes_2d", 1e-4), ("bboxes_3d", 1e-3), ("pose_cov", 1e-3)):
+            a, b = torch.from_numpy(g[name]).double(), torch.from_numpy(c[name]).double()
+            scale = float(b.abs().max().clamp(min=1e-6))
+            errs[name] = max(errs.get(name, 0.0), float((a - b).abs().max()) / scale)
+            check(bool(((a - b).abs() <= rtol * b.abs() + rtol * scale).all()),
+                  f"tiny eval, {what}: image {i}'s {name} differs GPU vs CPU "
+                  f"({errs[name]} of scale)")
+    check(list(ap_gpu) == list(ap_cpu)
+          and max(abs(ap_gpu[k] - ap_cpu[k]) for k in ap_cpu) <= 1e-9,
+          f"tiny eval, {what}: the AP dicts differ GPU vs CPU")
+    return cpu, ap_cpu, errs
+
+
+def phase_eval_tiny(root):
+    """The tiny float32 configuration (test_scale 0.1, so the 375x1242
+    images fit its 64x128 pad) through ``run_eval`` on the GPU and on the
+    CPU (``tiny_eval_pair``): first on the mini-KITTI's labels, where its
+    random weights score AP 0, then on labels made from the CPU's own
+    results, where the AP dicts compared are not all 0."""
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, test_scale=0.1))
+    cpu, ap, errs = tiny_eval_pair(cfg, root, "random labels")
+    labelled = EVAL_DIR / "self_labelled"
+    shutil.copytree(root, labelled)
+    cpu.write_result_files(cpu.format_results(cpu.results), str(labelled / "label_2"))
+    _, ap_self, errs_self = tiny_eval_pair(cfg, labelled, "self labels")
+    check(max(ap_self.values()) > 0.0,
+          "tiny eval on labels made from its own results: every AP is 0")
+    print("tiny_eval " + json.dumps(dict(
+        valid=sum(int(r["valid"].sum()) for r in cpu.results),
+        rel_err_of_scale={k: max(errs[k], errs_self[k]) for k in errs},
+        ap_max=max(ap.values()), ap_max_self_labels=max(ap_self.values()),
+        ap_nonzero_self_labels=sum(v > 0 for v in ap_self.values()))), flush=True)
+
+
+def phase_demo(root, flush):
+    """``python -m monorun_tpu_torch.demo.infer_imgs --device cuda`` on 4 of
+    the eval's PNGs: 4 visualisations, 3 direct-kernel launches per image;
+    the first image's aligns (batch 1) against the plain version."""
+    imgs, out = EVAL_DIR / "demo_imgs", EVAL_DIR / "demo_viz"
+    imgs.mkdir(parents=True, exist_ok=True)
+    for p in sorted((root / "image_2").iterdir())[:4]:
+        shutil.copy(p, imgs / p.name)
+    calib = EVAL_DIR / "calib.csv"
+    calib.write_text(f"{KITTI_FX},0,{KITTI_CX}\n0,{KITTI_FX},{KITTI_CY}\n0,0,1\n")
+    sessions, recorded = [], []
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(align_env({}))
+        stack.enter_context(recording_aligns(recorded))
+        stack.enter_context(patched(infer_imgs, "init_inference",
+                                    keeping(init_inference, sessions)))
+        reset_counts()
+        results = infer_imgs.main([str(imgs), "kitti_multiclass", "--calib", str(calib),
+                                   "--device", "cuda", "--show-dir", str(out)])
+        counts = read_counts()
+    check_launches(counts, {"roi_align": 3}, 4, "demo infer_imgs")
+    written = sorted(p.name for p in out.iterdir())
+    check(written == sorted(p.name for p in imgs.iterdir()) and len(results) == 4,
+          f"infer_imgs wrote {written} for 4 images")
+    recs, _ = check_recorded_aligns("demo", recorded, sessions[0].cfg, flush)
+    del recorded, sessions
+    torch.cuda.empty_cache()
+    print("demo " + json.dumps(dict(images=4, visualisations=len(written))), flush=True)
+    return counts, recs
 
 
 # ---- main ----------------------------------------------------------------
@@ -1231,12 +1600,22 @@ def main() -> int:
         train_recs, train_counts, _ = phase_train(flush, dev, card)
         with align_env({}):
             phase_tiny_train()
+        torch.cuda.empty_cache()
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
+        eval_counts, eval_root, eval_recs = phase_eval(card, flush)
+        with align_env({}):
+            phase_eval_tiny(eval_root)
+        demo_counts, demo_recs = phase_demo(eval_root, flush)
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
     except SmokeFailure as e:
         print(f"FAIL {e}", file=sys.stderr)
         return 1
 
     direct = kernel_record("roi_align", default_counts["roi_align"], forward)
-    direct["max_abs_err"] = max(r["max_abs_err"] for r in synthetic + forward)
+    direct["max_abs_err"] = max(r["max_abs_err"]
+                                for r in synthetic + forward + eval_recs + demo_recs)
+    direct["calls"] += (kernel_record("roi_align", 0, eval_recs)["calls"]
+                        + kernel_record("roi_align", 0, demo_recs)["calls"])
     launches = {"roi_align_tile": micro["roi_align_tile"],
                 "roi_align_band_tiered": paths["band tiered"]["roi_align_band_tiered"],
                 "roi_align_band_packed": micro["roi_align_band_packed"],
@@ -1249,6 +1628,12 @@ def main() -> int:
     kernels[1]["max_abs_err"] = max(r["max_abs_err"] for r in backward + train_recs)
     for rec in kernels:
         rec["attributes"] = attributes[by_name[rec["name"]]]
+    # each path's own count, read just after it ran from counts set to 0
+    direct["launches_by_path"] = {"serve": default_counts["roi_align"],
+                                  "eval": eval_counts["roi_align"],
+                                  "infer_imgs": demo_counts["roi_align"],
+                                  "train": train_counts["roi_align"]}
+    kernels[1]["launches_by_path"] = {"train": train_counts["roi_align_backward"]}
     print(f"clocks {clocks_line()}", flush=True)
     print(f"seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

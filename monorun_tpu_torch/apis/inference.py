@@ -1,7 +1,7 @@
 """Inference API: build a detector from a config (and optionally a
-reference checkpoint) and serve uint8 canvases; the PyTorch counterpart
-of ``monorun_tpu/apis/inference.py`` (``init_inference``,
-``InferenceSession`` with ``raw=True``).
+reference checkpoint) and run it on batches; the PyTorch counterpart of
+``monorun_tpu/apis/inference.py`` (``init_inference``,
+``InferenceSession``, ``inference_detector``, ``read_calib_csv``).
 
 Entry points run on the GPU (``device="cuda"``) unless the caller asks
 for another device; without a GPU they raise rather than move to the CPU.
@@ -16,11 +16,14 @@ as the JAX package does on the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import cv2
+import numpy as np
 import torch
 
 from ..config import MonoRUnConfig, get_config
+from ..data.pipeline import load_image, normalize_pad
 from ..models.detector import (
     Detections, HeadDraws, MonoRUn, compute_dtype, init_random_weights,
 )
@@ -38,17 +41,24 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 class InferenceSession:
-    """Holds the model on its device and serves batches of uint8 canvases:
-    ``run`` takes (B, raw_height, raw_width, 3) uint8 canvases with each
-    image pasted top-left at native resolution, native intrinsics (B, 3, 3)
-    and native (h, w) shapes (B, 2)."""
+    """Holds the model on its device and runs batches.
+
+    ``raw=False`` (the JAX package's default): ``run`` takes (B, H, W, 3)
+    images already normalised and padded (``data/pipeline.py:
+    normalize_pad``), the K of those images (B, 3, 3) and their (h, w)
+    before padding (B, 2). ``raw=True`` serves uint8 canvases: (B,
+    raw_height, raw_width, 3) with each image pasted top-left at native
+    resolution, native intrinsics and native (h, w) shapes; resizing,
+    normalising and padding then run on the device
+    (``data/pipeline.py:device_preprocess``).
+    """
 
     def __init__(self, cfg: MonoRUnConfig, model: MonoRUn, batch_size: int,
-                 device: torch.device, seed: int = 0):
+                 device: torch.device, raw: bool = False):
         self.cfg = cfg
         self.batch_size = batch_size
         self.device = device
-        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.raw = raw
         dt = compute_dtype(cfg)
         with torch.no_grad():
             for p in model.parameters():
@@ -56,43 +66,145 @@ class InferenceSession:
                     p.data = p.data.to(dt)
         self.model = model.to(device).eval()
 
-    def run(self, raw, cams, raw_shapes, draws: HeadDraws = HeadDraws()
-            ) -> Detections:
-        def dev(x, dtype=None):
-            return torch.as_tensor(x, dtype=dtype, device=self.device)
+    def upload(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """One copy of a host array to the session's device; to a GPU it
+        goes through pinned memory, without blocking the host."""
+        t = torch.as_tensor(x, dtype=dtype)
+        if t.device == self.device:
+            return t
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
+    def run(self, images, cam, shapes, seed: int = 0,
+            draws: HeadDraws = HeadDraws()) -> Detections:
+        """One batch. The random draws that ``draws`` does not give come
+        from a generator on the session's device seeded with ``seed``, so
+        a result depends on the seed and not on the calls before it."""
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        fn = self.model.serve_raw if self.raw else self.model
         with torch.inference_mode():
-            return self.model.serve_raw(
-                dev(raw), dev(cams, torch.float32), dev(raw_shapes, torch.float32),
-                draws, self.generator,
-            )
+            return fn(self.upload(images), self.upload(cam, torch.float32),
+                      self.upload(shapes, torch.float32), draws, generator)
+
+
+def serving_config(cfg: MonoRUnConfig, checkpoint: Optional[str],
+                   explicit_lazy: bool = False) -> MonoRUnConfig:
+    """The config a checkpoint is served with. A reference ``.pth``
+    switches ``neck.lazy_lower`` off (its weights were trained on the
+    dense stride-2 level), unless the caller set it deliberately
+    (``explicit_lazy``)."""
+    if (checkpoint and checkpoint.endswith(".pth") and cfg.neck.lazy_lower
+            and not explicit_lazy):
+        print("[init_inference] .pth checkpoint: neck.lazy_lower -> False "
+              "(reference-faithful dense stride-2 level; override with "
+              "--cfg-options neck.lazy_lower=True)")
+        return dataclasses.replace(
+            cfg, neck=dataclasses.replace(cfg.neck, lazy_lower=False)
+        )
+    return cfg
 
 
 def init_inference(
     config: str | MonoRUnConfig,
     checkpoint: Optional[str] = None,
     batch_size: int = 1,
+    explicit_lazy: bool = False,
     device: str | torch.device = "cuda",
     seed: int = 0,
+    raw: bool = False,
 ) -> InferenceSession:
     """Build an InferenceSession from a preset name or config object.
 
     Without a checkpoint the weights are random, drawn from a
-    ``torch.Generator`` seeded with ``seed``. Loading a reference ``.pth``
-    switches ``neck.lazy_lower`` off: those weights were trained on the
-    dense stride-2 level.
+    ``torch.Generator`` seeded with ``seed``. A checkpoint is a reference
+    ``.pth`` (``serving_config`` says how it sets ``neck.lazy_lower``).
+    ``raw`` selects the session's input (``InferenceSession``).
     """
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(config) if isinstance(config, str) else config
-    if checkpoint and cfg.neck.lazy_lower:
-        cfg = dataclasses.replace(
-            cfg, neck=dataclasses.replace(cfg.neck, lazy_lower=False)
+    cfg = serving_config(cfg, checkpoint, explicit_lazy)
+    if checkpoint and not checkpoint.endswith(".pth"):
+        raise NotImplementedError(
+            f"{checkpoint}: only reference .pth checkpoints load so far; the "
+            "port's own training checkpoints come with its training loop"
         )
     model = MonoRUn(cfg)
     if checkpoint:
         load_pth(model, checkpoint)
     else:
         init_random_weights(model, torch.Generator().manual_seed(seed))
-    return InferenceSession(cfg, model, batch_size, device, seed)
+    return InferenceSession(cfg, model, batch_size, device, raw=raw)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    if t.is_floating_point():
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def detections_to_host(det: Detections
+                       ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """A batch's detections as numpy, one copy per field (bfloat16 and
+    device tensors cannot go to numpy directly): (fields, extras)."""
+    fields = {k: _host(v) for k, v in det._asdict().items() if k != "extras"}
+    return fields, {k: _host(v) for k, v in det.extras.items()}
+
+
+def inference_detector(
+    session: InferenceSession,
+    image_paths: Sequence[str],
+    cam_intrinsics: Sequence[np.ndarray],
+    seed: int = 0,
+) -> List[Dict[str, np.ndarray]]:
+    """Run detection on image files; returns per-image result dicts
+    (bboxes_2d, scores_2d, labels, bboxes_3d, valid, pose_cov) in numpy.
+    Takes a session with ``raw=False``."""
+    cfg = session.cfg
+    results = []
+    B = session.batch_size
+    s = float(cfg.data.test_scale)
+    for i in range(0, len(image_paths), B):
+        chunk = image_paths[i : i + B]
+        cams = [np.array(c) for c in cam_intrinsics[i : i + B]]
+        if s != 1.0:
+            for c in cams:
+                c[:2] *= s
+        imgs, shapes = [], []
+        for p in chunk:
+            img = load_image(p, cfg.data.to_rgb)
+            if s != 1.0:
+                h, w = img.shape[:2]
+                img = cv2.resize(
+                    img, (int(round(w * s)), int(round(h * s))),
+                    interpolation=cv2.INTER_LINEAR,
+                )
+            padded, (rh, rw) = normalize_pad(img, cfg.data)
+            imgs.append(padded)
+            shapes.append([float(rh), float(rw)])
+        while len(imgs) < B:   # pad the tail batch
+            imgs.append(np.zeros_like(imgs[0]))
+            cams.append(cams[-1])
+            shapes.append(shapes[-1])
+        det, _ = detections_to_host(session.run(
+            np.stack(imgs), np.stack(cams).astype(np.float32),
+            np.asarray(shapes, np.float32),
+            seed=seed + i,
+        ))
+        for b in range(len(chunk)):
+            results.append(dict(
+                bboxes_2d=det["bboxes_2d"][b] / s,
+                scores_2d=det["scores_2d"][b],
+                labels=det["labels"][b],
+                bboxes_3d=det["bboxes_3d"][b],
+                valid=det["valid"][b],
+                pose_cov=det["pose_cov"][b],
+            ))
+    return results
+
+
+def read_calib_csv(path: str) -> np.ndarray:
+    """demo/calib.csv style: 3x3 intrinsic matrix as comma-separated rows."""
+    return np.loadtxt(path, delimiter=",").astype(np.float32).reshape(3, 3)

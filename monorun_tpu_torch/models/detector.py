@@ -1,5 +1,6 @@
 """MonoRUn detector: the PyTorch counterpart of
-``monorun_tpu/models/detector.py`` (``serve_raw``, ``heads_forward``,
+``monorun_tpu/models/detector.py`` (``__call__`` as ``forward``,
+``serve_raw``, ``heads_forward``,
 ``extract_feats``, ``calibrated_cov``, and ``train_forward`` for the
 training losses).
 
@@ -146,6 +147,20 @@ class MonoRUn(nn.Module):
     def calibrated_cov(self, pose_cov: Tensor) -> Tensor:
         s = torch.exp(self.roi_head.pose_head.cov_calib_logscale)
         return (s[:, None] * s[None, :]) * pose_cov
+
+    def forward(
+        self, images: Tensor, cam_intrinsic: Tensor, img_shapes: Tensor,
+        draws: HeadDraws = HeadDraws(),
+        generator: Optional[torch.Generator] = None,
+    ) -> Detections:
+        """Normalised, padded (B, H, W, 3) batch in, detections out (the
+        JAX package's ``MonoRUn.__call__``). ``cam_intrinsic`` is the K of
+        the images as given, ``img_shapes`` their (h, w) before padding."""
+        feats = self.extract_feats(images)
+        return self.heads_forward(
+            feats, cam_intrinsic, img_shapes, (images.shape[1], images.shape[2]),
+            draws, generator,
+        )
 
     def serve_raw(
         self, raw: Tensor, cam_native: Tensor, raw_shapes: Tensor,

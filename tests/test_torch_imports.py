@@ -21,7 +21,10 @@ def test_port_imports_with_jax_and_reference_blocked():
     names = [m.name for m in pkgutil.walk_packages([str(PKG)], "monorun_tpu_torch.")]
     for name in ("apis.inference", "targets", "targets.assigner", "targets.sampler",
                  "targets.rpn_targets", "targets.dense_target", "losses", "train",
-                 "utils.synthetic"):
+                 "utils.synthetic", "data.kitti", "data.loader", "data.transforms",
+                 "eval", "eval.kitti_eval", "eval.rotated_iou_np", "eval._native",
+                 "apis.test", "utils.visualizer", "tools.test", "tools.prepare_kitti",
+                 "demo", "demo.infer_imgs", "demo.infer_webcam"):
         assert f"monorun_tpu_torch.{name}" in names, name
     code = (
         "import sys\n"

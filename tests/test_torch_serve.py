@@ -129,13 +129,14 @@ def test_continuous_outputs_match(both):
 
 
 def test_init_inference_session_on_cpu():
-    """The entry point: seeded random weights, explicit CPU, uint8 in,
-    fixed-shape detections out; a CUDA request without a GPU raises."""
+    """The entry point with ``raw=True``: seeded random weights, explicit
+    CPU, uint8 in, fixed-shape detections out; a CUDA request without a
+    GPU raises."""
     cfg = tiny_config(tget_config)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             init_inference(cfg, batch_size=B)
-    sess = init_inference(cfg, batch_size=B, device="cpu", seed=3)
+    sess = init_inference(cfg, batch_size=B, device="cpu", seed=3, raw=True)
     assert isinstance(sess, InferenceSession)
     raw, cam, shapes = _inputs(seed=4)
     det = sess.run(raw, cam, shapes)
@@ -144,5 +145,6 @@ def test_init_inference_session_on_cpu():
     assert det.valid.dtype == torch.bool and det.labels.shape == (B, M)
     assert torch.isfinite(det.bboxes_3d).all() and torch.isfinite(det.pose_cov).all()
     # same seed, same weights and draws: the same detections
-    det2 = init_inference(cfg, batch_size=B, device="cpu", seed=3).run(raw, cam, shapes)
+    det2 = init_inference(cfg, batch_size=B, device="cpu", seed=3,
+                          raw=True).run(raw, cam, shapes)
     torch.testing.assert_close(det2.bboxes_3d, det.bboxes_3d, rtol=0, atol=0)
