@@ -104,16 +104,36 @@ Phases, each printing its own lines:
    those PNGs: 4 visualisations, 3 direct-kernel launches per image, the
    first image's three aligns (batch 1: 1000 proposals, 48 detections)
    against the plain version (with times as in phase 3);
-15. a ``kernels`` JSON line (the registers and local memory bytes per
+15. the training loop: a mini-KITTI of 12 training and 4 validation
+   375x1242 PNGs (under ``build/``), then ``python -m
+   monorun_tpu_torch.tools.train kitti_multiclass`` run in-process at full
+   width (batch 3, 384x1280, bf16, seeded random weights): a first call of
+   4 steps (``--max-steps 4``, one epoch) and a second that resumes from
+   its ``step_4`` for the second epoch, a checkpoint and a validation
+   (``_run_val``, batch 2) every epoch, a log record every step: exactly
+   3 direct and 3 backward launches per step and 3 direct launches per
+   validation batch, none of another kernel; the first step's three
+   aligns against the plain version, forward and backward (as in phase
+   10), and the first validation batch's (batch 2: 2000 proposals, 96
+   detections; the shapes ``step_8`` is served at below) as in phase 3;
+   finite losses in ``train_log.jsonl``; the frozen stages unmoved;
+   the resumed steps continuing from 4; ``step_8`` loaded into a fresh
+   model and optimizer on the card bit-equal to the trained state;
+   ``init_inference`` on ``step_8`` holding the trained weights, with
+   valid detections; ms per step inside the loop (loader, upload and
+   logging included) beside phase 10's bare step, training img/s, the
+   loop's wait on the loader, the upload, checkpoint save and load ms and
+   MB, ``_run_val``'s ms and peak memory; the checkpoints removed after;
+16. a ``kernels`` JSON line (the registers and local memory bytes per
    thread and dtype of the direct kernel, its backward and the four
    staged kernels, as the loaded build reports them, among their keys;
    local memory, a spill, fails the run; each path's launches of the
    direct kernel and its backward under ``launches_by_path``) and, last,
    the JSON result line.
 
-Every path (phases 4, 7, 8, 10, 12 and 14) runs with all launch counts
-set to 0 just before it and read just after; a kernel that its path did
-not launch fails the run.
+Every path (phases 4, 7, 8, 10, 12, 14 and 15) runs with all launch
+counts set to 0 just before it and read just after; a kernel that its
+path did not launch fails the run.
 
 Tolerances (kernel against plain version; both accumulate in float32):
 bfloat16 |d| <= 2^-7 |ref| + 1e-5 max(1, max|ref|), one bfloat16 rounding
@@ -170,16 +190,19 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from monorun_tpu_torch.apis.inference import (
-    InferenceSession, detections_to_host, init_inference,
+    InferenceSession, detections_to_host, init_inference, upload,
 )
+from monorun_tpu_torch.apis import train as apis_train
 from monorun_tpu_torch.apis.test import run_eval
 from monorun_tpu_torch.config import get_config
 from monorun_tpu_torch.data.kitti import KITTI3DDataset
+from monorun_tpu_torch.data.loader import PrefetchLoader
 from monorun_tpu_torch.data.pipeline import (
-    collate, device_preprocess, load_image, prepare_test_sample,
+    collate, device_preprocess, load_image, prepare_test_sample, prepare_train_sample,
 )
 from monorun_tpu_torch.demo import infer_imgs
 from monorun_tpu_torch.eval import _native as kitti_native
@@ -187,7 +210,9 @@ from monorun_tpu_torch.eval.kitti_eval import kitti_eval
 from monorun_tpu_torch.models.detector import (
     HeadDraws, MonoRUn, init_random_weights,
 )
-from monorun_tpu_torch.train import create_train_state, train_step
+from monorun_tpu_torch.train import create_train_state, make_optimizer, train_step
+from monorun_tpu_torch.utils import checkpoint as ckpt
+from monorun_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from monorun_tpu_torch.utils.synthetic import synthetic_train_batch
 from monorun_tpu_torch.ops import roi_align as ra
 from monorun_tpu_torch.ops import roi_align_band as rb
@@ -196,6 +221,7 @@ from monorun_tpu_torch.ops import roi_align_tile as rt
 from monorun_tpu_torch.ops.roi_align_cuda import roi_align_kernel
 from monorun_tpu_torch.tools import micro_bench
 from monorun_tpu_torch.tools import test as tools_test
+from monorun_tpu_torch.tools import train as tools_train
 from monorun_tpu_torch.tools.micro_bench import align_env, card_line, device_ms
 
 HBM_BYTES_PER_S = 3.35e12
@@ -492,7 +518,7 @@ def check_recorded_aligns(what, recorded, cfg, flush, ab=()):
     recs, calls = [], []
     labels = ("proposals 7x7", "detections 7x7", "detections 14x14")
     with torch.inference_mode():
-        for label, (feats, rois, head_cfg, out_size, _, out) in zip(labels, recorded):
+        for label, (feats, rois, head_cfg, out_size, _, out, _) in zip(labels, recorded):
             n_lvl = len(head_cfg.featmap_strides)
             strides = ra.align_strides(cfg.neck.lazy_lower, head_cfg.featmap_strides)
             feats = [f.contiguous() for f in feats[:n_lvl]]
@@ -513,15 +539,20 @@ def check_recorded_aligns(what, recorded, cfg, flush, ab=()):
 
 
 @contextlib.contextmanager
-def recording_aligns(recorded, n=3):
-    """Every model's ``_align`` keeps its first ``n`` calls as (feats, rois,
-    head_cfg, out_size, pyramid, out)."""
+def recording_aligns(recorded, n=3, grad=False):
+    """Every model's ``_align`` keeps its first ``n`` calls as [feats, rois,
+    head_cfg, out_size, pyramid, out, output gradient]. With ``grad`` only
+    calls under autograd count (a training step's three aligns), and the
+    output gradient arrives with the backward; else it stays None."""
     align = MonoRUn._align
 
     def record(self, feats, rois, head_cfg, out_size, tile_h, pyramid):
         out = align(self, feats, rois, head_cfg, out_size, tile_h, pyramid)
-        if len(recorded) < n:
-            recorded.append((feats, rois, head_cfg, out_size, pyramid, out))
+        if len(recorded) < n and (out.requires_grad or not grad):
+            rec = [feats, rois.detach(), head_cfg, out_size, pyramid, out.detach(), None]
+            if grad:
+                out.register_hook(lambda g: rec.__setitem__(6, g.detach()))
+            recorded.append(rec)
         return out
 
     with patched(MonoRUn, "_align", record):
@@ -530,15 +561,15 @@ def recording_aligns(recorded, n=3):
 
 def serve_requests(sess, requests, record=False):
     """Serves each request, synchronised; returns (ms each, detections,
-    the first forward's aligns as (feats, rois, head_cfg, out_size,
-    pyramid, out) when ``record``)."""
+    the first forward's aligns as ``recording_aligns`` keeps them when
+    ``record``)."""
     recorded = []
     model = sess.model
     align = model._align
 
     def recording_align(feats, rois, head_cfg, out_size, tile_h, pyramid):
         out = align(feats, rois, head_cfg, out_size, tile_h, pyramid)
-        recorded.append((feats, rois, head_cfg, out_size, pyramid, out))
+        recorded.append((feats, rois, head_cfg, out_size, pyramid, out, None))
         return out
 
     times, dets = [], []
@@ -938,36 +969,23 @@ def phase_train(flush, dev, card):
     before = {n: params[n].detach().clone() for n in fixed + trainable}
 
     recorded = []
-    align = model._align
-
-    def recording_align(feats, rois, head_cfg, out_size, tile_h, pyramid):
-        out = align(feats, rois, head_cfg, out_size, tile_h, pyramid)
-        rec = [feats, rois.detach(), head_cfg, out_size, out.detach(), None]
-        out.register_hook(lambda g: rec.__setitem__(5, g.detach()))
-        recorded.append(rec)
-        return out
-
     times, losses = [], []
     torch.cuda.reset_peak_memory_stats()
-    with align_env({}):
+    with align_env({}), recording_aligns(recorded, grad=True):
         reset_counts()
-        try:
-            for i in range(TRAIN_STEPS):
-                model._align = recording_align if i == 0 else align
-                start = read_counts()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, m = train_step(model, opt, state, batch, generator=gen)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-                step = {k: v - start[k] for k, v in read_counts().items()}
-                check_launches(step, {"roi_align": 3, "roi_align_backward": 3}, 1,
-                               f"train step {i}")
-                check_train_metrics(m, f"train step {i}")
-                check(float(m["loss_calib"]) == 0.0, "loss_calib is on before step 100")
-                losses.append({k: float(m[k]) for k in TRAIN_LOSSES})
-        finally:
-            model._align = align
+        for i in range(TRAIN_STEPS):
+            start = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = train_step(model, opt, state, batch, generator=gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            step = {k: v - start[k] for k, v in read_counts().items()}
+            check_launches(step, {"roi_align": 3, "roi_align_backward": 3}, 1,
+                           f"train step {i}")
+            check_train_metrics(m, f"train step {i}")
+            check(float(m["loss_calib"]) == 0.0, "loss_calib is on before step 100")
+            losses.append({k: float(m[k]) for k in TRAIN_LOSSES})
         counts = read_counts()
     check_launches(counts, {"roi_align": 3, "roi_align_backward": 3}, TRAIN_STEPS, "train")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -982,10 +1000,23 @@ def phase_train(flush, dev, card):
         first_ms=times[0], losses=losses, peak_mem_gib=peak, step=state.step,
         loss_ema=float(state.loss_ema))), flush=True)
 
-    recs = []
+    recs, _ = check_train_aligns("train", recorded, cfg, flush)
+    del recorded, model, opt
+    torch.cuda.empty_cache()
+    return recs, counts, dict(ms_per_step=ms, peak_mem_gib=peak)
+
+
+def check_train_aligns(what, recorded, cfg, flush):
+    """A training step's three recorded aligns: each kernel output against
+    the plain version on the same features and RoIs, then the backward
+    kernel against the plain autograd on the step's own output gradients
+    (``compare_backward``). Returns (the backward records, the forwards'
+    largest error)."""
+    check(len(recorded) == 3, f"{what}: {len(recorded)} aligns recorded, expected 3")
+    recs, errs = [], []
     labels = ("sampled 7x7", "positives 7x7", "positives 14x14")
-    for label, (feats, rois, head_cfg, out_size, out, grad_out) in zip(labels, recorded):
-        check(grad_out is not None, f"the step's {label} align got no output gradient")
+    for label, (feats, rois, head_cfg, out_size, _, out, grad_out) in zip(labels, recorded):
+        check(grad_out is not None, f"{what}: the step's {label} align got no output gradient")
         n_lvl = len(head_cfg.featmap_strides)
         strides = ra.align_strides(cfg.neck.lazy_lower, head_cfg.featmap_strides)
         feats = [f.detach().contiguous() for f in feats[:n_lvl]]
@@ -995,15 +1026,14 @@ def phase_train(flush, dev, card):
                 feats, rois, strides, out_size, head_cfg.finest_scale,
                 max_ratio=head_cfg.align_max_ratio, long_span_cap=ra.LONG_SPAN_CAP)
         err, ok = max_err(out, plain)
-        print(f"train align {label}: the step's kernel output ({out.dtype}, "
+        errs.append(err)
+        print(f"{what} align {label}: the step's kernel output ({out.dtype}, "
               f"{rois.shape[0]} RoIs) against plain version, max abs error {err}", flush=True)
-        check(ok, f"the step's {label} align disagrees with the plain version")
+        check(ok, f"{what}: the step's {label} align disagrees with the plain version")
         recs.append(compare_backward(
-            f"train {label}", feats, rois, grad_out.contiguous(), strides, out_size,
+            f"{what} {label}", feats, rois, grad_out.contiguous(), strides, out_size,
             head_cfg.finest_scale, head_cfg.align_max_ratio, flush))
-    del recorded, model, opt
-    torch.cuda.empty_cache()
-    return recs, counts, dict(ms_per_step=ms, peak_mem_gib=peak)
+    return recs, max(errs)
 
 
 def tiny_train_config():
@@ -1225,7 +1255,6 @@ def write_mini_kitti(root: Path, n: int, seed: int) -> None:
     object (cars, pedestrians, cyclists, DontCare regions) and the list
     ``train_list.txt``."""
     import cv2
-    import numpy as np
 
     rng = np.random.default_rng(seed)
     for sub in ("image_2", "label_2", "calib"):
@@ -1354,11 +1383,11 @@ def phase_eval(card, flush):
                                for i in range(EVAL_IMAGES)], 3, sync=False)
     batch = collate([prepare_test_sample(ds, i, cfg.data) for i in range(EVAL_BATCH)])
 
-    def upload():
+    def upload_batch():
         for k in ("images", "cam", "img_shapes"):
-            sess.upload(batch[k], None if k == "images" else torch.float32)
+            upload(batch[k], sess.device, None if k == "images" else torch.float32)
 
-    upload_ms = wall_ms(upload, 5)
+    upload_ms = wall_ms(upload_batch, 5)
     det = sess.run(batch["images"], batch["cam"], batch["img_shapes"])
     torch.cuda.synchronize()
     to_host_ms = wall_ms(lambda: detections_to_host(det), 5)
@@ -1490,6 +1519,228 @@ def phase_demo(root, flush):
     return counts, recs
 
 
+# ---- the training loop: tools.train on a mini-KITTI ------------------------------
+
+LOOP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+LOOP_TRAIN, LOOP_VAL = 12, 4
+LOOP_EPOCH_STEPS = 4          # 12 images at samples_per_device 3
+VAL_BATCH = 2                 # _run_val's batch
+
+
+def phase_train_loop(card, flush, bare_ms):
+    """``python -m monorun_tpu_torch.tools.train kitti_multiclass`` in-process
+    at full width (384x1280, batch 3, bf16, seeded random weights) on a
+    mini-KITTI of 12 training and 4 validation images: a first call of 4
+    steps (``--max-steps 4``, one epoch), then a second call that resumes
+    from its ``step_4`` for the second epoch; a checkpoint, a validation
+    and a log record every epoch or step. Checks: 3 direct-kernel and 3
+    backward launches per step and 3 direct ones per validation batch, none
+    of another kernel; the first step's aligns against the plain version,
+    forward and backward, and the first validation batch's (recorded
+    under ``recording_aligns``, held and timed as in phase 3); finite
+    losses; the frozen stages unmoved; the
+    resumed run's steps continuing from 4; ``step_8`` loaded into a fresh
+    model and optimizer on the card bit-equal; ``init_inference`` serving
+    ``step_8``. Prints ms per step inside the loop (the time between the
+    ends of consecutive steps of an epoch: loader, upload and logging
+    included), training img/s, the loop's wait on the loader per step,
+    checkpoint save and load ms and MB, ``_run_val``'s ms and peak
+    memory."""
+    cfg = get_config("kitti_multiclass")
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)     # no step_N of an earlier run to resume
+    root, work = LOOP_DIR / "kitti", LOOP_DIR / "work"
+    write_mini_kitti(root, LOOP_TRAIN + LOOP_VAL, seed=31)
+    ids = (root / "train_list.txt").read_text().split()
+    (root / "loop_train.txt").write_text("\n".join(ids[:LOOP_TRAIN]) + "\n")
+    (root / "loop_val.txt").write_text("\n".join(ids[LOOP_TRAIN:]) + "\n")
+    argv = ["kitti_multiclass", "--work-dir", str(work), "--cfg-options",
+            f"data.train_root='{root}'", "data.train_list='loop_train.txt'",
+            "data.val_list='loop_val.txt'", "train.total_epochs=2",
+            "train.checkpoint_interval=1", "train.eval_interval=1", "train.log_interval=1"]
+    made, recorded, val_recorded = [], [], []
+    steps, waits, saves, loads, vals = [], [], [], [], []
+    watched = ("backbone.conv1.weight", "backbone.layer1.0.conv1.weight",
+               "backbone.layer2.0.conv1.weight", "rpn_head.rpn_reg.weight")
+    init = {}
+    run_val = apis_train._run_val
+
+    def create(*args, **kw):
+        made.append(create_train_state(*args, **kw))
+        params = dict(made[-1][0].named_parameters())
+        init.update({n: params[n].detach().clone() for n in watched if n not in init})
+        return made[-1]
+
+    def step(*args, **kw):
+        start, t0 = read_counts(), time.perf_counter()
+        out = train_step(*args, **kw)
+        torch.cuda.synchronize()
+        steps.append(dict(start=t0, end=time.perf_counter(),
+                          launches={k: v - start[k] for k, v in read_counts().items()}))
+        return out
+
+    def validate(*args):
+        start, t0 = read_counts(), time.perf_counter()
+        # the first validation keeps its first batch's aligns
+        with recording_aligns(val_recorded) if not vals else contextlib.nullcontext():
+            ap = run_val(*args)
+        torch.cuda.synchronize()
+        vals.append(dict(ms=(time.perf_counter() - t0) * 1e3, ap=ap,
+                         launches={k: v - start[k] for k, v in read_counts().items()}))
+        return ap
+
+    def save(*args):
+        t0 = time.perf_counter()
+        path = save_checkpoint(*args)
+        saves.append(dict(ms=(time.perf_counter() - t0) * 1e3, path=path,
+                          mb=(Path(path) / ckpt.FILE).stat().st_size / 1e6))
+        return path
+
+    def load(path, *args):
+        t0 = time.perf_counter()
+        state = load_checkpoint(path, *args)
+        torch.cuda.synchronize()
+        loads.append(dict(ms=(time.perf_counter() - t0) * 1e3, path=path, step=state.step))
+        return state
+
+    class TimedLoader(PrefetchLoader):
+        """Keeps the ms the loop waits for each batch."""
+
+        def __iter__(self):
+            it, first = super().__iter__(), True
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                waits.append(dict(ms=(time.perf_counter() - t0) * 1e3, first=first))
+                first = False
+                yield batch
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(align_env({}))
+        stack.enter_context(recording_aligns(recorded, grad=True))
+        for name, fn in (("create_train_state", create), ("train_step", step),
+                         ("_run_val", validate), ("save_checkpoint", save),
+                         ("load_checkpoint", load), ("PrefetchLoader", TimedLoader)):
+            stack.enter_context(patched(apis_train, name, fn))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        tools_train.main(argv + ["--max-steps", str(LOOP_EPOCH_STEPS)])
+        first_s = time.perf_counter() - t0
+        model, state = tools_train.main(argv)
+        counts = read_counts()
+        dev = next(model.parameters()).device
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        total_s = time.perf_counter() - t0
+
+    n_steps, n_val_batches = 2 * LOOP_EPOCH_STEPS, -(-LOOP_VAL // VAL_BATCH)
+    per_step = {"roi_align": 3, "roi_align_backward": 3}
+    check(len(steps) == n_steps, f"train loop: {len(steps)} steps, expected {n_steps}")
+    for i, s in enumerate(steps):
+        check_launches(s["launches"], per_step, 1, f"train loop step {i + 1}")
+    check(len(vals) == 2, f"train loop: {len(vals)} validations, expected 2")
+    for v in vals:
+        check_launches(v["launches"], {"roi_align": 3}, n_val_batches, "train loop _run_val")
+        check(bool(v["ap"]) and all(math.isfinite(x) for x in v["ap"].values()),
+              "train loop: a validation AP is missing or not finite")
+    check_launches(counts, {"roi_align": 3 * (n_steps + 2 * n_val_batches),
+                            "roi_align_backward": 3 * n_steps}, 1, "train loop (both calls)")
+
+    log = [json.loads(ln) for ln in (work / "train_log.jsonl").read_text().splitlines()]
+    check([(r["step"], r["epoch"]) for r in log]
+          == [(i + 1, i // LOOP_EPOCH_STEPS) for i in range(n_steps)],
+          f"train loop: the log's steps and epochs {[(r['step'], r['epoch']) for r in log]}")
+    for r in log:
+        check(set(TRAIN_LOSSES) <= set(r), f"train loop: the log misses a loss: {sorted(r)}")
+        check(all(math.isfinite(v) for v in r.values()), f"train loop: a value is not "
+                                                          f"finite at step {r['step']}")
+    check([(Path(ld["path"]).name, ld["step"]) for ld in loads] == [("step_4", 4)],
+          f"train loop: the second call resumed {loads}, expected step_4 at step 4")
+    check([Path(sv["path"]).name for sv in saves] == ["step_4"] * 2 + ["step_8"] * 2,
+          f"train loop: checkpoints {[sv['path'] for sv in saves]}")
+    check(state.step == n_steps, f"train loop: final step {state.step}")
+
+    # the frozen stages unmoved (each call starts from the same seeded
+    # weights), the rest moved
+    params = dict(model.named_parameters())
+    for n in watched:
+        frozen = n.startswith(("backbone.conv1", "backbone.layer1."))
+        check(torch.equal(params[n], init[n]) == frozen,
+              f"train loop: {n} {'moved' if frozen else 'did not move'}")
+
+    # the round trip: step_8 into a fresh model and optimizer on the card
+    with dev:
+        fresh = MonoRUn(model.cfg)
+    fresh_opt = make_optimizer(model.cfg, fresh, 2 * LOOP_EPOCH_STEPS)
+    t0 = time.perf_counter()
+    got = load_checkpoint(str(work / "step_8"), fresh, fresh_opt)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    opt = made[-1][2]
+    want = model.state_dict()
+    check(all(torch.equal(v, want[k]) for k, v in fresh.state_dict().items())
+          and all(a is b is None or torch.equal(a, b)
+                  for a, b in zip(fresh_opt.mu + fresh_opt.nu, opt.mu + opt.nu))
+          and fresh_opt.count == opt.count and got.step == state.step
+          and torch.equal(got.loss_ema, state.loss_ema),
+          "train loop: step_8 loaded on the card is not bit-equal to the trained state")
+    del fresh, fresh_opt, made
+
+    # init_inference serves step_8: the trained weights (at the compute
+    # dtype), finite detections of two validation images
+    sess = init_inference("kitti_multiclass", str(work / "step_8"), batch_size=VAL_BATCH,
+                          device="cuda")
+    served = sess.model.state_dict()
+    check(all(torch.equal(served[k], v.to(served[k].dtype)) for k, v in want.items()),
+          "train loop: init_inference(step_8) does not hold the trained weights")
+    val_ds = KITTI3DDataset(str(root), "loop_val.txt")
+    batch = collate([prepare_test_sample(val_ds, i, cfg.data) for i in range(VAL_BATCH)])
+    start = read_counts()
+    det = sess.run(batch["images"], batch["cam"], batch["img_shapes"])
+    torch.cuda.synchronize()
+    check_launches({k: v - start[k] for k, v in read_counts().items()}, {"roi_align": 3}, 1,
+                   "init_inference(step_8)")
+    check_detections(det, cfg, VAL_BATCH)
+    del sess, det, want, model
+
+    recs, fwd_err = check_train_aligns("train loop", recorded, cfg, flush)
+    val_recs, _ = check_recorded_aligns("train loop val", val_recorded, cfg, flush)
+    del recorded, val_recorded
+    # the pinned upload of one training batch, alone
+    train_ds = KITTI3DDataset(str(root), "loop_train.txt")
+    rng = np.random.default_rng(0)
+    host = collate([prepare_train_sample(train_ds, i, cfg.data, rng)
+                    for i in range(cfg.train.samples_per_device)])
+    upload_ms = wall_ms(lambda: [upload(v, dev) for v in host.values()], 5)
+    # ms between the ends of consecutive steps of one epoch
+    gaps = [(b["end"] - a["end"]) * 1e3 for e in range(2)
+            for a, b in zip(steps[e * LOOP_EPOCH_STEPS:(e + 1) * LOOP_EPOCH_STEPS - 1],
+                            steps[e * LOOP_EPOCH_STEPS + 1:(e + 1) * LOOP_EPOCH_STEPS])]
+    ms = statistics.median(gaps)
+    Bt = cfg.train.samples_per_device
+    print("train_loop " + json.dumps(dict(
+        config="kitti_multiclass", card=card, batch=Bt, canvas=[cfg.data.pad_height,
+                                                                 cfg.data.pad_width],
+        compute_dtype=cfg.compute_dtype, steps=n_steps, ms_per_step=ms, ms_between_steps=gaps,
+        train_img_per_s=Bt * 1e3 / ms, bare_train_step_ms=bare_ms,
+        first_step_ms=[(s["end"] - s["start"]) * 1e3 for s in steps[::LOOP_EPOCH_STEPS]],
+        step_ms=[(s["end"] - s["start"]) * 1e3 for s in steps],
+        loader_wait_ms_per_step=sum(w["ms"] for w in waits) / len(waits),
+        loader_wait_ms_after_first=statistics.median(w["ms"] for w in waits if not w["first"]),
+        loader_wait_ms_first=[w["ms"] for w in waits if w["first"]],
+        upload_ms_per_batch=upload_ms,
+        checkpoint_save_ms=[sv["ms"] for sv in saves], checkpoint_mb=saves[-1]["mb"],
+        checkpoint_resume_load_ms=loads[0]["ms"], checkpoint_load_ms_fresh_model=load_ms,
+        run_val_ms=[v["ms"] for v in vals], val_images=LOOP_VAL,
+        first_call_s=first_s, both_calls_s=total_s, peak_mem_gib=peak,
+        final_losses={k: log[-1][k] for k in TRAIN_LOSSES})), flush=True)
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts, recs, fwd_err, val_recs
+
+
 # ---- main ----------------------------------------------------------------
 
 
@@ -1597,7 +1848,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         with align_env({}):
             backward = phase_backward(cfg, flush, dev)
-        train_recs, train_counts, _ = phase_train(flush, dev, card)
+        train_recs, train_counts, train_stats = phase_train(flush, dev, card)
         with align_env({}):
             phase_tiny_train()
         torch.cuda.empty_cache()
@@ -1607,15 +1858,20 @@ def main() -> int:
             phase_eval_tiny(eval_root)
         demo_counts, demo_recs = phase_demo(eval_root, flush)
         shutil.rmtree(EVAL_DIR, ignore_errors=True)
+        loop_counts, loop_recs, loop_fwd_err, loop_val_recs = phase_train_loop(
+            card, flush, train_stats["ms_per_step"])
     except SmokeFailure as e:
         print(f"FAIL {e}", file=sys.stderr)
         return 1
 
     direct = kernel_record("roi_align", default_counts["roi_align"], forward)
-    direct["max_abs_err"] = max(r["max_abs_err"]
-                                for r in synthetic + forward + eval_recs + demo_recs)
+    direct["max_abs_err"] = max([r["max_abs_err"]
+                                 for r in synthetic + forward + eval_recs + demo_recs
+                                 + loop_val_recs]
+                                + [loop_fwd_err])
     direct["calls"] += (kernel_record("roi_align", 0, eval_recs)["calls"]
-                        + kernel_record("roi_align", 0, demo_recs)["calls"])
+                        + kernel_record("roi_align", 0, demo_recs)["calls"]
+                        + kernel_record("roi_align", 0, loop_val_recs)["calls"])
     launches = {"roi_align_tile": micro["roi_align_tile"],
                 "roi_align_band_tiered": paths["band tiered"]["roi_align_band_tiered"],
                 "roi_align_band_packed": micro["roi_align_band_packed"],
@@ -1625,15 +1881,18 @@ def main() -> int:
         kernel_record(name, n, [r for r in staged if r["kernel"] == name
                                 and r["variant"] != "matmul t1 bf16"])
         for name, n in launches.items()]
-    kernels[1]["max_abs_err"] = max(r["max_abs_err"] for r in backward + train_recs)
+    kernels[1]["max_abs_err"] = max(r["max_abs_err"] for r in backward + train_recs + loop_recs)
+    kernels[1]["calls"] += kernel_record("roi_align_backward", 0, loop_recs)["calls"]
     for rec in kernels:
         rec["attributes"] = attributes[by_name[rec["name"]]]
     # each path's own count, read just after it ran from counts set to 0
     direct["launches_by_path"] = {"serve": default_counts["roi_align"],
                                   "eval": eval_counts["roi_align"],
                                   "infer_imgs": demo_counts["roi_align"],
-                                  "train": train_counts["roi_align"]}
-    kernels[1]["launches_by_path"] = {"train": train_counts["roi_align_backward"]}
+                                  "train": train_counts["roi_align"],
+                                  "train_loop": loop_counts["roi_align"]}
+    kernels[1]["launches_by_path"] = {"train": train_counts["roi_align_backward"],
+                                      "train_loop": loop_counts["roi_align_backward"]}
     print(f"clocks {clocks_line()}", flush=True)
     print(f"seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -30,6 +30,17 @@ from ..models.detector import (
 from ..utils.weights import load_pth
 
 
+def upload(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One copy of a host array to ``device``; to a GPU it goes through
+    pinned memory, without blocking the host."""
+    t = torch.as_tensor(x, dtype=dtype)
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def resolve_device(device: str | torch.device) -> torch.device:
     """The requested device; a CUDA request without a GPU raises."""
     device = torch.device(device)
@@ -66,16 +77,6 @@ class InferenceSession:
                     p.data = p.data.to(dt)
         self.model = model.to(device).eval()
 
-    def upload(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """One copy of a host array to the session's device; to a GPU it
-        goes through pinned memory, without blocking the host."""
-        t = torch.as_tensor(x, dtype=dtype)
-        if t.device == self.device:
-            return t
-        if self.device.type == "cuda" and t.device.type == "cpu":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def run(self, images, cam, shapes, seed: int = 0,
             draws: HeadDraws = HeadDraws()) -> Detections:
         """One batch. The random draws that ``draws`` does not give come
@@ -84,8 +85,8 @@ class InferenceSession:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         fn = self.model.serve_raw if self.raw else self.model
         with torch.inference_mode():
-            return fn(self.upload(images), self.upload(cam, torch.float32),
-                      self.upload(shapes, torch.float32), draws, generator)
+            return fn(upload(images, self.device), upload(cam, self.device, torch.float32),
+                      upload(shapes, self.device, torch.float32), draws, generator)
 
 
 def serving_config(cfg: MonoRUnConfig, checkpoint: Optional[str],
@@ -105,6 +106,17 @@ def serving_config(cfg: MonoRUnConfig, checkpoint: Optional[str],
     return cfg
 
 
+def load_weights(model: MonoRUn, checkpoint: str) -> MonoRUn:
+    """Loads a reference ``.pth`` or the weights of a port checkpoint
+    directory (``workdir/step_N``, ``utils/checkpoint.py``) into ``model``."""
+    if checkpoint.endswith(".pth"):
+        return load_pth(model, checkpoint)
+    from ..utils.checkpoint import load_checkpoint
+
+    load_checkpoint(checkpoint, model)
+    return model
+
+
 def init_inference(
     config: str | MonoRUnConfig,
     checkpoint: Optional[str] = None,
@@ -118,7 +130,8 @@ def init_inference(
 
     Without a checkpoint the weights are random, drawn from a
     ``torch.Generator`` seeded with ``seed``. A checkpoint is a reference
-    ``.pth`` (``serving_config`` says how it sets ``neck.lazy_lower``).
+    ``.pth`` (``serving_config`` says how it sets ``neck.lazy_lower``) or
+    a checkpoint directory of the port's training loop (``load_weights``).
     ``raw`` selects the session's input (``InferenceSession``).
     """
     device = resolve_device(device)
@@ -126,14 +139,9 @@ def init_inference(
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(config) if isinstance(config, str) else config
     cfg = serving_config(cfg, checkpoint, explicit_lazy)
-    if checkpoint and not checkpoint.endswith(".pth"):
-        raise NotImplementedError(
-            f"{checkpoint}: only reference .pth checkpoints load so far; the "
-            "port's own training checkpoints come with its training loop"
-        )
     model = MonoRUn(cfg)
     if checkpoint:
-        load_pth(model, checkpoint)
+        load_weights(model, checkpoint)
     else:
         init_random_weights(model, torch.Generator().manual_seed(seed))
     return InferenceSession(cfg, model, batch_size, device, raw=raw)

@@ -4,7 +4,7 @@ counterpart of ``monorun_tpu/apis/test.py:run_eval``.
 Batched (the reference forces samples_per_gpu=1, tools/test.py:160-162),
 with host data loading overlapped against device compute by the prefetch
 loader. Each batch goes to the session's device in one copy per input
-(``InferenceSession.upload``) and its detections come back in one copy
+(``apis/inference.py:upload``) and its detections come back in one copy
 per field (``detections_to_host``).
 """
 

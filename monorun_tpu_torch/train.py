@@ -32,8 +32,19 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass
 class TrainState:
+    """What JAX's ``TrainState`` holds beside the weights and the optimizer
+    state, which live in the model and the ``AdamW`` here."""
+
     step: int
     loss_ema: Tensor          # the projection loss's mean inverse std (scalar)
+
+    def to_dict(self) -> Dict[str, object]:
+        return {"step": self.step, "loss_ema": self.loss_ema.detach().cpu()}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, object], device: str | torch.device) -> "TrainState":
+        return cls(step=int(d["step"]),
+                   loss_ema=torch.as_tensor(d["loss_ema"], dtype=torch.float32).to(device))
 
 
 def _is_frozen(name: str) -> bool:
@@ -165,6 +176,26 @@ class AdamW:
     def step(self, grads: Sequence[Tensor]) -> None:
         for p, u in zip(self.params, self.update(grads)):
             p.add_(u)
+
+    def state_dict(self) -> Dict[str, object]:
+        """The update count and the moments of the trainable parameters,
+        keyed by parameter name, copied to the host."""
+        def host(moments):
+            return {n: m.detach().cpu() for n, m in zip(self.names, moments) if m is not None}
+
+        return {"count": self.count, "mu": host(self.mu), "nu": host(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Restores ``state_dict()``'s output; the moments go to their
+        parameters' devices. The trainable parameters must be the same."""
+        if list(state["mu"]) != [n for n, t in zip(self.names, self.trainable) if t]:
+            raise ValueError("the optimizer state is for other parameters")
+        for i, (n, p) in enumerate(zip(self.names, self.params)):
+            if self.trainable[i]:
+                self.mu[i] = state["mu"][n].to(p.device, p.dtype, copy=True)
+                self.nu[i] = state["nu"][n].to(p.device, p.dtype, copy=True)
+        self.count = int(state["count"])
 
 
 def make_optimizer(cfg: MonoRUnConfig, model: torch.nn.Module, total_steps: int) -> AdamW:

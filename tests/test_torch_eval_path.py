@@ -294,7 +294,9 @@ def test_read_calib_csv(tmp_path):
 
 def test_pth_lazy_lower_rule(tmp_path):
     """A reference .pth switches neck.lazy_lower off unless the caller set
-    it (explicit_lazy); nothing else does (the JAX package's rule)."""
+    it (explicit_lazy); nothing else does (the JAX package's rule). A
+    checkpoint of the port's training loop loads with its weights and
+    serves; a missing one raises."""
     _, tcfg = configs()
     assert tcfg.neck.lazy_lower
     assert tinf.serving_config(tcfg, None).neck.lazy_lower
@@ -309,8 +311,25 @@ def test_pth_lazy_lower_rule(tmp_path):
     assert not tinf.init_inference(tcfg, ckpt, device="cpu").cfg.neck.lazy_lower
     assert tinf.init_inference(tcfg, ckpt, device="cpu",
                                explicit_lazy=True).cfg.neck.lazy_lower
-    with pytest.raises(NotImplementedError, match="pth"):
+    # a checkpoint of the port's training loop loads (lazy level kept) and serves
+    from monorun_tpu_torch.train import TrainState, make_optimizer
+    from monorun_tpu_torch.utils.checkpoint import save_checkpoint
+
+    model = MonoRUn(tcfg)
+    with pytest.raises(FileNotFoundError):
         tinf.init_inference(tcfg, str(tmp_path / "step_100"), device="cpu")
+    step = save_checkpoint(str(tmp_path), model, make_optimizer(tcfg, model, 10),
+                           TrainState(100, torch.ones(())), 100)
+    sess = tinf.init_inference(tcfg, step, device="cpu")
+    assert sess.cfg.neck.lazy_lower
+    served = sess.model.state_dict()
+    for k, v in model.state_dict().items():
+        assert torch.equal(served[k].to(v.dtype), v), k
+    det = sess.run(np.zeros((1, H, W, 3), np.float32),
+                   np.eye(3, dtype=np.float32)[None] * [[70.0], [70.0], [1.0]],
+                   np.array([[H, W]], np.float32))
+    assert bool(torch.isfinite(det.bboxes_2d).all())
+    shutil.rmtree(step)
 
 
 def test_run_eval_distributed_waits_for_the_multi_gpu_slice(world):

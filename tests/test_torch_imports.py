@@ -24,7 +24,8 @@ def test_port_imports_with_jax_and_reference_blocked():
                  "utils.synthetic", "data.kitti", "data.loader", "data.transforms",
                  "eval", "eval.kitti_eval", "eval.rotated_iou_np", "eval._native",
                  "apis.test", "utils.visualizer", "tools.test", "tools.prepare_kitti",
-                 "demo", "demo.infer_imgs", "demo.infer_webcam"):
+                 "demo", "demo.infer_imgs", "demo.infer_webcam", "apis.train",
+                 "utils.checkpoint", "tools.train"):
         assert f"monorun_tpu_torch.{name}" in names, name
     code = (
         "import sys\n"
