@@ -124,16 +124,40 @@ Phases, each printing its own lines:
    logging included) beside phase 10's bare step, training img/s, the
    loop's wait on the loader, the upload, checkpoint save and load ms and
    MB, ``_run_val``'s ms and peak memory; the checkpoints removed after;
-16. a ``kernels`` JSON line (the registers and local memory bytes per
+16. data parallelism (``monorun_tpu_torch/parallel/``), in spawned
+   processes: (i) two ranks sharing the one card over Gloo
+   (``parallel.process_group(backend="gloo", device="cuda:0")``) take one
+   ``train_step`` of kitti_multiclass at full width in float32, rank r on
+   rows 3r..3r+2 of a seeded global ``synthetic_train_batch`` of 6
+   (384x1280) with its slice of one set of global ``TrainDraws``, against
+   one process here on all 6 with the same weights and draws: the ranks'
+   summed losses to 1e-4 relative (1e-3 after the PnP) and rank 0's
+   all-reduced gradients to 1e-3 of each leaf's scale (phase 11's
+   tolerances), the ranks' parameters, buffers and ``loss_ema`` bit-equal,
+   3 direct and 3 backward launches per rank and none of a staged kernel,
+   each rank's aligns against the plain version (as in phase 10); (iii)
+   the same two ranks through ``train_detector`` at kitti_multiclass (bf16,
+   a global batch of 6) on phase 15's 12 training images for 3 epochs:
+   3 + 3 launches per step per rank, ms per step per rank (between the
+   ends of an epoch's consecutive steps), global img/s and the gradient
+   all-reduce's ms and share of a step, beside phase 15's world-1 loop;
+   (ii) one rank under NCCL at world size 1: ``tools.train
+   kitti_multiclass --distributed`` (bf16, batch 3, 2 steps, a checkpoint
+   and a validation) on phase 15's mini-KITTI, the collectives the layer
+   uses on the card, and ``tools.test --distributed`` (batch 4) on phase
+   12's, whose results must match phase 12's within phase 13's tolerances
+   with validity masks and labels equal;
+17. a ``kernels`` JSON line (the registers and local memory bytes per
    thread and dtype of the direct kernel, its backward and the four
    staged kernels, as the loaded build reports them, among their keys;
    local memory, a spill, fails the run; each path's launches of the
-   direct kernel and its backward under ``launches_by_path``) and, last,
-   the JSON result line.
+   direct kernel and its backward under ``launches_by_path``, the
+   processes of phase 16 summed) and, last, the JSON result line.
 
-Every path (phases 4, 7, 8, 10, 12, 14 and 15) runs with all launch
-counts set to 0 just before it and read just after; a kernel that its
-path did not launch fails the run.
+Every path (phases 4, 7, 8, 10, 12, 14, 15 and each of 16's) runs with
+all launch counts set to 0 just before it and read just after (in the
+process that runs it); a kernel that its path did not launch fails the
+run.
 
 Tolerances (kernel against plain version; both accumulate in float32):
 bfloat16 |d| <= 2^-7 |ref| + 1e-5 max(1, max|ref|), one bfloat16 rounding
@@ -182,8 +206,11 @@ import contextlib
 import dataclasses
 import json
 import math
+import multiprocessing
+import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -196,6 +223,8 @@ import torch
 from monorun_tpu_torch.apis.inference import (
     InferenceSession, detections_to_host, init_inference, upload,
 )
+from monorun_tpu_torch import parallel
+from monorun_tpu_torch import train as ttrain
 from monorun_tpu_torch.apis import train as apis_train
 from monorun_tpu_torch.apis.test import run_eval
 from monorun_tpu_torch.config import get_config
@@ -208,8 +237,10 @@ from monorun_tpu_torch.demo import infer_imgs
 from monorun_tpu_torch.eval import _native as kitti_native
 from monorun_tpu_torch.eval.kitti_eval import kitti_eval
 from monorun_tpu_torch.models.detector import (
-    HeadDraws, MonoRUn, init_random_weights,
+    HeadDraws, MonoRUn, TrainDraws, init_random_weights,
 )
+from monorun_tpu_torch.models.global_head import train_dropout_masks
+from monorun_tpu_torch.models.rpn import get_proposals
 from monorun_tpu_torch.train import create_train_state, make_optimizer, train_step
 from monorun_tpu_torch.utils import checkpoint as ckpt
 from monorun_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -1410,7 +1441,7 @@ def phase_eval(card, flush):
     )), flush=True)
     del sess, sessions, det, batch
     torch.cuda.empty_cache()
-    return counts, root, recs
+    return counts, root, recs, ds.results
 
 
 def keeping(make, made):
@@ -1738,7 +1769,424 @@ def phase_train_loop(card, flush, bare_ms):
         final_losses={k: log[-1][k] for k in TRAIN_LOSSES})), flush=True)
     shutil.rmtree(LOOP_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
-    return counts, recs, fwd_err, val_recs
+    return counts, recs, fwd_err, val_recs, dict(ms_per_step=ms, train_img_per_s=Bt * 1e3 / ms)
+
+
+# ---- data parallelism on the card: two ranks on one H100, and NCCL at world 1 ----------
+
+DP_WORLD = 2
+DP_BATCH = 6                  # the global batch: rows 3r..3r+2 on rank r
+DP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
+DP_LOOP_EPOCHS = 3            # 12 images at a global batch of 6: 2 steps an epoch
+DP_TIMEOUT_S = 900
+DP_PATHS = ("train_dp", "train_dp_loop", "train_nccl", "eval_nccl")
+
+
+def dp_config():
+    """kitti_multiclass at full width, computing in float32 (the
+    equivalence check's precision)."""
+    return dataclasses.replace(get_config("kitti_multiclass"), compute_dtype="float32")
+
+
+def dp_draws(cfg, model, batch, seed):
+    """Every random draw of one training step on the global ``batch``, from a
+    generator on the batch's device seeded with ``seed``: every process
+    that calls it with the same model and batch gets the same draws."""
+    dev = batch["images"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, H, W = batch["images"].shape[:3]
+    tr, nh = cfg.train, cfg.noc_head
+    with torch.no_grad():
+        cls, reg = model.rpn_head(model.extract_feats(batch["images"][:1])
+                                  [cfg.rpn.starting_level:])
+        props, _ = get_proposals(cls, reg, cfg.rpn, (H, W), cfg.rpn.train_nms_pre,
+                                 cfg.rpn.nms_post, valid_shapes=batch["img_shapes"][:1])
+    n_anchors = sum(c[0].numel() for c in cls)
+    n_gt, n = batch["gt_boxes"].shape[1], B * tr.max_pos
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    pair = (lambda m: (u(B, m), u(B, m)))
+    return TrainDraws(
+        rpn_noise=pair(n_anchors), rcnn_noise=pair(props.shape[1] + n_gt),
+        rcnn_noise_refined=pair(tr.rcnn_num_samples + n_gt) if tr.refined_reassign else None,
+        global_masks=train_dropout_masks(model.roi_head.global_head.cfg, n, dev, gen),
+        noc_mask=u(n, cfg.neck.out_channels) < 1 - nh.dropout2d_rate
+        if nh.dropout2d_rate > 0 else None,
+        ransac_keys=u(n, cfg.pose_head.ransac_hypotheses, nh.dense_size ** 2),
+        score_uniform=u(n))
+
+
+def keep_step_grads(opt, into):
+    """``opt.step`` keeping (on the host) the gradients it is given, which
+    ``train_step`` has all-reduced."""
+    step = opt.step
+
+    def wrapper(grads):
+        into.update({n: g.detach().float().cpu() for n, g in zip(opt.names, grads)})
+        step(grads)
+
+    opt.step = wrapper
+
+
+def dp_rank_env(rank, world, port):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+
+
+def same_on_every_rank(tensors) -> bool:
+    """Whether every rank holds tensors bit-equal to rank 0's."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    ref = flat.clone()
+    torch.distributed.broadcast(ref, 0)
+    ok = torch.tensor([int(torch.equal(ref, flat))], device=flat.device)
+    torch.distributed.all_reduce(ok, op=torch.distributed.ReduceOp.MIN)
+    return bool(ok)
+
+
+def timed_all_reduce(times):
+    """``train.all_reduce_sum`` synchronised and timed: each call's ms and
+    element count kept in ``times``."""
+    fn = ttrain.all_reduce_sum
+
+    def wrapper(tensors):
+        tensors = list(tensors)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(tensors)
+        torch.cuda.synchronize()
+        times.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          elements=sum(t.numel() for t in tensors)))
+        return out
+
+    return patched(ttrain, "all_reduce_sum", wrapper)
+
+
+def dp_rank(rank, port, loop_root):
+    """One of two ranks on the one card, over Gloo: (i) the full-width
+    float32 step on rows 3r..3r+2 of the global batch, its launches and
+    aligns checked here; (iii) the training loop on the mini-KITTI at
+    ``loop_root`` (bf16, a global batch of 6). Writes ``DP_DIR/rank{r}.json``
+    and, rank 0, the step's gradients to ``DP_DIR/grads.pt``."""
+    dp_rank_env(rank, DP_WORLD, port)
+    with parallel.process_group(backend="gloo", device="cuda:0") as dev:
+        rc.build_all()
+        cfg = dp_config()
+        model, state, opt = create_train_state(cfg, total_steps=1000, device=dev, seed=0)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in synthetic_train_batch(cfg, DP_BATCH, (cfg.data.pad_height,
+                                                                   cfg.data.pad_width),
+                                                   seed=0).items()}
+        draws = dp_draws(cfg, model, batch, seed=4)
+        grads, recorded = {}, []
+        keep_step_grads(opt, grads)
+        with align_env({}), recording_aligns(recorded, grad=True):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = train_step(model, opt, state, parallel.shard_batch(batch, rank, DP_WORLD),
+                                  parallel.shard_batch(draws, rank, DP_WORLD))
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+        flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+        recs, fwd_err = check_train_aligns(f"dp rank {rank}", recorded, cfg, flush)
+        equal = same_on_every_rank(list(model.parameters()) + list(model.buffers())
+                                   + [state.loss_ema])
+        if rank == 0:
+            torch.save(grads, DP_DIR / "grads.pt")
+        out = dict(rank=parallel.rank(), world=parallel.world_size(), launches=counts,
+                   metrics={k: float(v) for k, v in m.items()}, first_step_ms=step_ms,
+                   params_equal_on_every_rank=equal, backward_recs=recs, align_err=fwd_err,
+                   loss_ema=float(state.loss_ema))
+        del model, opt, state, batch, draws, grads, recorded, flush
+        torch.cuda.empty_cache()
+        out["loop"] = dp_loop(loop_root, dev)
+        (DP_DIR / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def dp_loop(root, dev):
+    """``train_detector`` at kitti_multiclass (bf16, samples_per_device 3, so
+    a global batch of 6) on ``root``'s 12 images for 3 epochs of 2 steps,
+    no checkpoint but the last and no validation: each step's end, launches
+    and all-reduce ms."""
+    cfg = get_config("kitti_multiclass")
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, train_root=str(root), train_list="loop_train.txt"), train=dataclasses.replace(
+        cfg.train, total_epochs=DP_LOOP_EPOCHS, checkpoint_interval=0, eval_interval=0,
+        tensorboard=False))
+    steps, reduces, waits = [], [], []
+
+    def step(*args, **kw):
+        start, t0 = read_counts(), time.perf_counter()
+        out = train_step(*args, **kw)
+        torch.cuda.synchronize()
+        steps.append(dict(start=t0, end=time.perf_counter(),
+                          launches={k: v - start[k] for k, v in read_counts().items()}))
+        return out
+
+    class TimedLoader(PrefetchLoader):
+        """Keeps the ms the loop waits for each batch."""
+
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                waits.append((time.perf_counter() - t0) * 1e3)
+                yield batch
+
+    work = DP_DIR / "loop_work"
+    with align_env({}), patched(apis_train, "train_step", step), timed_all_reduce(reduces), \
+            patched(apis_train, "PrefetchLoader", TimedLoader):
+        apis_train.train_detector(cfg, str(work), device=dev)
+    parallel.barrier()
+    if parallel.rank() == 0:
+        shutil.rmtree(work, ignore_errors=True)
+    per_epoch = len(steps) // DP_LOOP_EPOCHS
+    gaps = [(b["end"] - a["end"]) * 1e3 for e in range(DP_LOOP_EPOCHS)
+            for a, b in zip(steps[e * per_epoch:(e + 1) * per_epoch - 1],
+                            steps[e * per_epoch + 1:(e + 1) * per_epoch])]
+    grad_reduces = [r for r in reduces if r["elements"] > 1000]
+    return dict(steps=len(steps), gaps_ms=gaps, launches=[s["launches"] for s in steps],
+                step_ms=[(s["end"] - s["start"]) * 1e3 for s in steps], loader_wait_ms=waits,
+                grad_all_reduce_ms=[r["ms"] for r in grad_reduces],
+                grad_all_reduce_elements=grad_reduces[0]["elements"],
+                metric_all_reduce_ms=[r["ms"] for r in reduces if r["elements"] <= 1000])
+
+
+def dp_nccl(port, loop_root, eval_root):
+    """One rank under NCCL at world size 1: ``tools.train kitti_multiclass
+    --distributed`` (bf16, batch 3, 2 steps, a checkpoint and a validation)
+    on phase 15's mini-KITTI, the NCCL collectives the layer uses on the
+    card, and ``tools.test --distributed`` (batch 4) on phase 12's, whose
+    results go to ``DP_DIR/nccl_eval.pt``. Writes ``DP_DIR/nccl.json``."""
+    rc.build_all()
+    work = DP_DIR / "nccl_work"
+    out = {}
+    dp_rank_env(0, 1, port)
+    train_argv = ["kitti_multiclass", "--distributed", "--work-dir", str(work),
+                  "--max-steps", "2", "--cfg-options", f"data.train_root='{loop_root}'",
+                  "data.train_list='loop_train.txt'", "data.val_list='loop_val.txt'",
+                  "train.checkpoint_interval=1", "train.eval_interval=1",
+                  "train.log_interval=1", "train.tensorboard=False"]
+    with align_env({}):
+        reset_counts()
+        t0 = time.perf_counter()
+        tools_train.main(train_argv)
+        out["train_s"] = time.perf_counter() - t0
+        out["train_launches"] = read_counts()
+    log = [json.loads(ln) for ln in (work / "train_log.jsonl").read_text().splitlines()]
+    out["train_log_steps"] = [r["step"] for r in log]
+    out["train_log_finite"] = all(math.isfinite(v) for r in log for v in r.values())
+    out["train_checkpoints"] = sorted(p.name for p in work.iterdir() if p.name.startswith("step_"))
+    shutil.rmtree(work, ignore_errors=True)
+
+    dp_rank_env(0, 1, free_port())
+    with parallel.process_group() as dev:
+        x = torch.arange(4.0, device=dev)
+        got = parallel.all_reduce_sum([x])[0]
+        torch.distributed.all_reduce(x)
+        gathered = [None]
+        torch.distributed.all_gather_object(gathered, {"rank": parallel.rank()})
+        parallel.barrier()
+        torch.cuda.synchronize()
+        out["nccl"] = dict(backend=torch.distributed.get_backend(), device=str(dev),
+                           all_reduce=x.tolist(), all_reduce_sum=got.tolist(),
+                           all_gather_object=gathered)
+
+    dp_rank_env(0, 1, free_port())
+    datasets = []
+    argv = ["kitti_multiclass", "--val-set", "--distributed", "--batch-size", str(EVAL_BATCH),
+            "--cfg-options", f"data.train_root='{eval_root}'", "data.val_list='train_list.txt'"]
+    with align_env({}), patched(tools_test, "KITTI3DDataset",
+                                keeping(RecordingDataset, datasets)):
+        reset_counts()
+        t0 = time.perf_counter()
+        out["eval_ap"] = tools_test.main(argv)
+        out["eval_s"] = time.perf_counter() - t0
+        out["eval_launches"] = read_counts()
+    torch.save(datasets[0].results, DP_DIR / "nccl_eval.pt")
+    (DP_DIR / "nccl.json").write_text(json.dumps(out))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(target, args_of_rank, what):
+    """Starts one spawned process per argument tuple and waits for all; one
+    that fails (or outlives ``DP_TIMEOUT_S``) stops the others and fails the
+    run."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args) for args in args_of_rank]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            failed = [p for p in procs if p.exitcode not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(60)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * len(procs), f"{what}: the spawned processes exited with {codes}")
+
+
+def phase_dp(card, eval_results, loop_stats):
+    """Phase 16 (the module docstring): two ranks on the one card over Gloo
+    against one process, then one NCCL rank through both CLIs."""
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    # (i) the one-process step on the global batch of 6, on the card
+    cfg = dp_config()
+    model, state, opt = create_train_state(cfg, total_steps=1000, device="cuda", seed=0)
+    dev = next(model.parameters()).device
+    H, W = cfg.data.pad_height, cfg.data.pad_width
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic_train_batch(cfg, DP_BATCH, (H, W), seed=0).items()}
+    draws = dp_draws(cfg, model, batch, seed=4)
+    ref_grads = {}
+    keep_step_grads(opt, ref_grads)
+    with align_env({}):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(model, opt, state, batch, draws)
+        torch.cuda.synchronize()
+        ref_ms = (time.perf_counter() - t0) * 1e3
+    ref = {k: float(v) for k, v in m.items()}
+    del model, opt, state, batch, draws
+    torch.cuda.empty_cache()
+
+    # the loop's and the eval's mini-KITTIs, as phases 15 and 12 wrote them
+    loop_root, eval_root = DP_DIR / "loop_kitti", DP_DIR / "eval_kitti"
+    write_mini_kitti(loop_root, LOOP_TRAIN + LOOP_VAL, seed=31)
+    ids = (loop_root / "train_list.txt").read_text().split()
+    (loop_root / "loop_train.txt").write_text("\n".join(ids[:LOOP_TRAIN]) + "\n")
+    (loop_root / "loop_val.txt").write_text("\n".join(ids[LOOP_TRAIN:]) + "\n")
+    write_mini_kitti(eval_root, EVAL_IMAGES, seed=21)
+
+    t0 = time.perf_counter()
+    port = free_port()
+    spawn_ranks(dp_rank, [(r, port, loop_root) for r in range(DP_WORLD)], "two ranks")
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((DP_DIR / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+    grads = torch.load(DP_DIR / "grads.pt")
+    per_step = {"roi_align": 3, "roi_align_backward": 3}
+    for r in ranks:
+        check(r["world"] == DP_WORLD, f"rank {r['rank']} saw world size {r['world']}")
+        check_launches(r["launches"], per_step, 1, f"data-parallel step, rank {r['rank']}")
+        check_train_metrics(r["metrics"], f"data-parallel step, rank {r['rank']}")
+        check(r["params_equal_on_every_rank"], "the ranks' parameters differ after the step")
+        check(r["metrics"] == ranks[0]["metrics"], "the ranks logged different metrics")
+    loss_err = {}
+    for k in TRAIN_LOSSES:
+        a, b = ranks[0]["metrics"][k], ref[k]
+        rtol = 1e-3 if k in AFTER_PNP else 1e-4
+        loss_err[k] = abs(a - b) / max(abs(b), 1e-6)
+        check(abs(a - b) <= rtol * max(abs(b), 1e-5),
+              f"data-parallel step: {k} {a} against one process's {b}")
+    check(sorted(grads) == sorted(ref_grads), "the ranks' gradients are of other parameters")
+    grad_rel = {}
+    for n, want in ref_grads.items():
+        scale = float(want.abs().max())
+        d = (grads[n].double() - want.double()).abs()
+        grad_rel[n] = float(d.max()) / max(scale, 1e-30)
+        check(bool((d <= 1e-3 * scale).all()), f"data-parallel step: the gradient of {n} is "
+                                               f"{grad_rel[n]} of its scale off")
+    worst = max(grad_rel, key=grad_rel.get)
+    print("dp_step " + json.dumps(dict(
+        config="kitti_multiclass float32", card=card, world=DP_WORLD, backend="gloo",
+        global_batch=DP_BATCH, rows_per_rank=DP_BATCH // DP_WORLD,
+        loss_rel_err=loss_err, grad_max_err_of_scale=grad_rel[worst], worst_leaf=worst,
+        one_process_step_ms=ref_ms, rank_first_step_ms=[r["first_step_ms"] for r in ranks],
+        launches_per_rank=[r["launches"] for r in ranks],
+        align_err_per_rank=[r["align_err"] for r in ranks],
+        params_bit_equal=all(r["params_equal_on_every_rank"] for r in ranks),
+        ranks_s=ranks_s)), flush=True)
+
+    # (iii) the loop at world 2 beside phase 15's world-1 loop
+    loops = [r["loop"] for r in ranks]
+    for r, lp in zip(ranks, loops):
+        check(lp["steps"] == 2 * DP_LOOP_EPOCHS, f"dp loop rank {r['rank']}: {lp['steps']} "
+                                                 f"steps")
+        for i, c in enumerate(lp["launches"]):
+            check_launches(c, per_step, 1, f"dp loop rank {r['rank']} step {i + 1}")
+    ms = [statistics.median(lp["gaps_ms"]) for lp in loops]
+    reduce_ms = [statistics.median(lp["grad_all_reduce_ms"]) for lp in loops]
+    print("dp_loop " + json.dumps(dict(
+        config="kitti_multiclass", card=card, world=DP_WORLD, backend="gloo",
+        shared_card=True, global_batch=DP_BATCH, ms_per_step_per_rank=ms,
+        global_train_img_per_s=DP_BATCH * 1e3 / max(ms), gaps_ms=[lp["gaps_ms"] for lp in loops],
+        grad_all_reduce_ms_per_rank=reduce_ms,
+        grad_all_reduce_ms_each=[lp["grad_all_reduce_ms"] for lp in loops],
+        step_ms_each=[lp["step_ms"] for lp in loops],
+        loader_wait_ms_each=[lp["loader_wait_ms"] for lp in loops],
+        grad_all_reduce_share_of_step=[a / b for a, b in zip(reduce_ms, ms)],
+        grad_all_reduce_elements=loops[0]["grad_all_reduce_elements"],
+        metric_all_reduce_ms=statistics.median(loops[0]["metric_all_reduce_ms"]),
+        world1_ms_per_step=loop_stats["ms_per_step"],
+        world1_train_img_per_s=loop_stats["train_img_per_s"])), flush=True)
+
+    # (ii) one NCCL rank: tools.train and tools.test --distributed
+    t0 = time.perf_counter()
+    spawn_ranks(dp_nccl, [(free_port(), loop_root, eval_root)], "the NCCL rank")
+    nccl_s = time.perf_counter() - t0
+    nc = json.loads((DP_DIR / "nccl.json").read_text())
+    n_val = -(-LOOP_VAL // VAL_BATCH)
+    check_launches(nc["train_launches"], {"roi_align": 3 * (2 + n_val),
+                                          "roi_align_backward": 3 * 2}, 1,
+                   "tools.train --distributed (NCCL, 2 steps and a validation)")
+    check(nc["train_log_steps"] == [1, 2] and nc["train_log_finite"],
+          f"tools.train --distributed: the log's steps {nc['train_log_steps']}")
+    check(nc["train_checkpoints"] == ["step_2"],
+          f"tools.train --distributed: checkpoints {nc['train_checkpoints']}")
+    check(nc["nccl"]["backend"] == "nccl" and nc["nccl"]["all_reduce"] == [0.0, 1.0, 2.0, 3.0]
+          and nc["nccl"]["all_reduce_sum"] == [0.0, 1.0, 2.0, 3.0]
+          and nc["nccl"]["all_gather_object"] == [{"rank": 0}],
+          f"the NCCL collectives at world size 1: {nc['nccl']}")
+    check_launches(nc["eval_launches"], {"roi_align": 3}, -(-EVAL_IMAGES // EVAL_BATCH),
+                   "tools.test --distributed (NCCL)")
+    got = torch.load(DP_DIR / "nccl_eval.pt", weights_only=False)
+    check(len(got) == len(eval_results) == EVAL_IMAGES, "tools.test --distributed: "
+                                                        f"{len(got)} results")
+    errs = {}
+    for i, (g, want) in enumerate(zip(got, eval_results)):
+        check((g["valid"] == want["valid"]).all() and (g["labels"] == want["labels"]).all(),
+              f"tools.test --distributed: image {i}'s validity or labels differ from phase 12")
+        for name, rtol in (("bboxes_2d", 1e-4), ("bboxes_3d", 1e-3), ("pose_cov", 1e-3)):
+            a, b = torch.from_numpy(g[name]).double(), torch.from_numpy(want[name]).double()
+            scale = float(b.abs().max().clamp(min=1e-6))
+            errs[name] = max(errs.get(name, 0.0), float((a - b).abs().max()) / scale)
+            check(bool(((a - b).abs() <= rtol * b.abs() + rtol * scale).all()),
+                  f"tools.test --distributed: image {i}'s {name} differs from phase 12 "
+                  f"({errs[name]} of scale)")
+    print("dp_nccl " + json.dumps(dict(
+        card=card, world=1, backend=nc["nccl"]["backend"], train_s=nc["train_s"],
+        eval_s=nc["eval_s"], rel_err_of_scale_vs_phase_12=errs,
+        valid=sum(int(r["valid"].sum()) for r in got), nccl_s=nccl_s,
+        phase_s=time.perf_counter() - t_phase)), flush=True)
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(
+        train_dp={k: sum(r["launches"][k] for r in ranks) for k in per_step},
+        train_dp_loop={k: sum(c[k] for lp in loops for c in lp["launches"]) for k in per_step},
+        train_nccl=nc["train_launches"], eval_nccl=nc["eval_launches"],
+        recs=[rec for r in ranks for rec in r["backward_recs"]],
+        align_err=max(r["align_err"] for r in ranks))
 
 
 # ---- main ----------------------------------------------------------------
@@ -1853,13 +2301,14 @@ def main() -> int:
             phase_tiny_train()
         torch.cuda.empty_cache()
         shutil.rmtree(EVAL_DIR, ignore_errors=True)
-        eval_counts, eval_root, eval_recs = phase_eval(card, flush)
+        eval_counts, eval_root, eval_recs, eval_results = phase_eval(card, flush)
         with align_env({}):
             phase_eval_tiny(eval_root)
         demo_counts, demo_recs = phase_demo(eval_root, flush)
         shutil.rmtree(EVAL_DIR, ignore_errors=True)
-        loop_counts, loop_recs, loop_fwd_err, loop_val_recs = phase_train_loop(
+        loop_counts, loop_recs, loop_fwd_err, loop_val_recs, loop_stats = phase_train_loop(
             card, flush, train_stats["ms_per_step"])
+        dp = phase_dp(card, eval_results, loop_stats)
     except SmokeFailure as e:
         print(f"FAIL {e}", file=sys.stderr)
         return 1
@@ -1868,7 +2317,7 @@ def main() -> int:
     direct["max_abs_err"] = max([r["max_abs_err"]
                                  for r in synthetic + forward + eval_recs + demo_recs
                                  + loop_val_recs]
-                                + [loop_fwd_err])
+                                + [loop_fwd_err, dp["align_err"]])
     direct["calls"] += (kernel_record("roi_align", 0, eval_recs)["calls"]
                         + kernel_record("roi_align", 0, demo_recs)["calls"]
                         + kernel_record("roi_align", 0, loop_val_recs)["calls"])
@@ -1881,7 +2330,8 @@ def main() -> int:
         kernel_record(name, n, [r for r in staged if r["kernel"] == name
                                 and r["variant"] != "matmul t1 bf16"])
         for name, n in launches.items()]
-    kernels[1]["max_abs_err"] = max(r["max_abs_err"] for r in backward + train_recs + loop_recs)
+    kernels[1]["max_abs_err"] = max(r["max_abs_err"]
+                                    for r in backward + train_recs + loop_recs + dp["recs"])
     kernels[1]["calls"] += kernel_record("roi_align_backward", 0, loop_recs)["calls"]
     for rec in kernels:
         rec["attributes"] = attributes[by_name[rec["name"]]]
@@ -1890,9 +2340,12 @@ def main() -> int:
                                   "eval": eval_counts["roi_align"],
                                   "infer_imgs": demo_counts["roi_align"],
                                   "train": train_counts["roi_align"],
-                                  "train_loop": loop_counts["roi_align"]}
+                                  "train_loop": loop_counts["roi_align"],
+                                  **{path: dp[path]["roi_align"] for path in DP_PATHS}}
     kernels[1]["launches_by_path"] = {"train": train_counts["roi_align_backward"],
-                                      "train_loop": loop_counts["roi_align_backward"]}
+                                      "train_loop": loop_counts["roi_align_backward"],
+                                      **{path: dp[path]["roi_align_backward"]
+                                         for path in DP_PATHS if path != "eval_nccl"}}
     print(f"clocks {clocks_line()}", flush=True)
     print(f"seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -133,6 +133,12 @@ def init_inference(
     ``.pth`` (``serving_config`` says how it sets ``neck.lazy_lower``) or
     a checkpoint directory of the port's training loop (``load_weights``).
     ``raw`` selects the session's input (``InferenceSession``).
+
+    JAX's ``mesh=`` shards one batch over a host's devices inside one
+    process. The port runs one process per GPU instead (``parallel/``):
+    each rank builds its own session on its own device (``cuda:LOCAL_RANK``
+    from ``parallel.init_distributed``) and serves its share of the batch,
+    so no ``mesh`` argument is needed (``tools/test.py --distributed``).
     """
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False

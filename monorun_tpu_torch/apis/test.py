@@ -6,6 +6,12 @@ with host data loading overlapped against device compute by the prefetch
 loader. Each batch goes to the session's device in one copy per input
 (``apis/inference.py:upload``) and its detections come back in one copy
 per field (``detections_to_host``).
+
+Distributed evaluation (the reference's ``multi_gpu_test`` and
+``collect_results``): each rank of the process group serves its strided
+shard of the dataset (``parallel.dataset_shard``) with its own session,
+and the per-image results are all-gathered (``parallel.allgather_results``)
+so that every rank evaluates the whole list.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Dict, Optional
 
 from ..data.kitti import KITTI3DDataset
 from ..data.loader import PrefetchLoader
+from ..parallel import allgather_results, dataset_shard, rank
 from .inference import InferenceSession, detections_to_host
 
 
@@ -33,19 +40,18 @@ def run_eval(
 ) -> Dict[str, float]:
     """Detect every image of ``ds`` with ``session`` (``raw=False``) and
     evaluate; returns the AP dict (empty without labels). Each batch's
-    draws are seeded with its first dataset index, as in the JAX
-    package."""
-    if distributed:
-        raise NotImplementedError(
-            "distributed evaluation comes with the port's multi-GPU slice "
-            "(torch.distributed)"
-        )
+    draws are seeded with its first dataset index, as in the JAX package.
+    ``distributed``: this rank detects its shard, every rank evaluates the
+    gathered results, and rank 0 alone writes ``result_dir`` and prints
+    the summary (ranks on one host would write the same files)."""
     cfg = session.cfg
+    indices = dataset_shard(len(ds)) if distributed else None
     loader = PrefetchLoader(
         ds, cfg.data, batch_size, train=False, shuffle=False, drop_last=False,
+        indices=indices,
     )
-    results = [None] * len(ds)
-    n_done = 0
+    local: Dict[int, dict] = {}
+    n_total = len(ds) if indices is None else len(indices)
     inv_s = 1.0 / float(cfg.data.test_scale)
     t0 = time.time()
     for batch in loader:
@@ -55,7 +61,7 @@ def run_eval(
         ))
         for b, idx in enumerate(batch["_indices"]):
             idx = int(idx)
-            if results[idx] is not None:
+            if idx in local:
                 continue   # wrapped tail duplicate
             # fast-preset downscale: 2D boxes back to native image coords
             # (3D outputs are metric already: the intrinsics were scaled
@@ -70,16 +76,21 @@ def run_eval(
             # cfg.test.debug extras feed the BEV reconstruction scatter in
             # the visualizer (image_bev_vis.py:119-141)
             res.update({k: v[b] for k, v in extras.items()})
-            results[idx] = res
-            n_done += 1
+            local[idx] = res
             if show_dir is not None:
                 _show(ds, idx, res, show_dir, show_score_thr)
         if progress:
-            rate = n_done / max(time.time() - t0, 1e-9)
-            print(f"\r[eval] {n_done}/{len(ds)} ({rate:.1f} img/s)", end="",
+            rate = len(local) / max(time.time() - t0, 1e-9)
+            print(f"\r[eval] {len(local)}/{n_total} ({rate:.1f} img/s)", end="",
                   flush=True)
     if progress:
         print()
+    if distributed:
+        results = allgather_results(local, len(ds))
+        if rank() != 0:
+            result_dir, print_summary = None, False
+    else:
+        results = [local.get(i) for i in range(len(ds))]
     return ds.evaluate(
         results, metrics=metrics, result_dir=result_dir,
         print_summary=print_summary,

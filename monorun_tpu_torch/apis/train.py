@@ -2,11 +2,17 @@
 PyTorch counterpart of ``monorun_tpu/apis/train.py`` (``MetricLogger``,
 ``train_detector``, ``_run_val``).
 
-The loop runs at world size 1, as the JAX loop does on one device (its
-data-parallel layer is then the identity); multi-GPU training comes with
-the port's multi-GPU slice. Each batch goes to the device in one pinned,
-non-blocking copy per array; metrics come to the host only at the log
-interval.
+Data-parallel over the ranks of a process group (``parallel/``; world
+size 1 without one): the global batch is ``samples_per_device`` x world,
+as JAX's is over its mesh. Every rank runs the same seeded loader over the
+global batch and keeps its own rows (``shard_batch``), as each JAX process
+takes its rows of one global array, so the augmentation draws are JAX's;
+each rank decodes the whole global batch. Rank 0 alone writes
+``train_log.jsonl``, ``grad_stats.jsonl`` and the checkpoints and runs the
+validation, the others waiting at a barrier: JAX's processes each write on
+their own host, and ranks on one host would write the same files. Each
+batch goes to the device in one pinned, non-blocking copy per array;
+metrics come to the host only at the log interval.
 
 The JAX loop's resume flaws are kept, so the two packages train alike:
 after a resume the random draws restart from ``seed + 1`` and the loader's
@@ -27,6 +33,7 @@ from ..config import MonoRUnConfig
 from ..data.kitti import KITTI3DDataset
 from ..data.loader import PrefetchLoader
 from ..models.detector import MonoRUn
+from ..parallel import barrier, rank, replicate, shard_batch, world_size
 from ..train import TrainState, create_train_state, train_step
 from ..utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .inference import InferenceSession, load_weights, resolve_device, upload
@@ -110,12 +117,15 @@ def train_detector(
     train state), and without it the newest ``step_N`` of ``workdir`` is
     resumed. A checkpoint is written every ``train.checkpoint_interval``
     epochs and at the end; ``val_ds`` is evaluated every
-    ``train.eval_interval`` epochs."""
+    ``train.eval_interval`` epochs. In a process group each rank passes its
+    own device; the draws of rank r come from ``seed + 1 + r``."""
     device = resolve_device(device)
     tr = cfg.train
     ds = KITTI3DDataset(cfg.data.train_root, cfg.data.train_list, classes=cfg.data.classes,
                         coord_3d_prefix=cfg.data.coord_3d_prefix)
-    global_batch = tr.samples_per_device          # world size 1
+    world, me = world_size(), rank()
+    lead = me == 0
+    global_batch = tr.samples_per_device * world
     loader = PrefetchLoader(ds, cfg.data, global_batch, train=True, seed=tr.seed)
     steps_per_epoch = len(loader)
     total_steps = steps_per_epoch * tr.total_epochs
@@ -129,16 +139,18 @@ def train_detector(
     resume_from = resume_from or latest_checkpoint(workdir)
     if resume_from:
         state = load_checkpoint(resume_from, model, optimizer)
+    replicate(model)
 
     step = state.step
-    logger = MetricLogger(workdir, tr.log_interval, tensorboard=tr.tensorboard)
-    generator = torch.Generator(device=device).manual_seed(tr.seed + 1)
+    logger = MetricLogger(workdir, tr.log_interval, tensorboard=tr.tensorboard) if lead \
+        else None
+    generator = torch.Generator(device=device).manual_seed(tr.seed + 1 + me)
 
     epoch = step // max(steps_per_epoch, 1)
     while step < total_steps:
         for batch in loader:
             batch.pop("_indices")
-            batch = {k: upload(v, device) for k, v in batch.items()}
+            batch = {k: upload(v, device) for k, v in shard_batch(batch, me, world).items()}
             # train_step runs the step at apply_loss_schedule(cfg, state.step),
             # the config JAX's loop re-specialises its step to at each boundary
             state, metrics = train_step(
@@ -147,23 +159,30 @@ def train_detector(
                 with_param_stats=tr.save_stats_interval > 0)
             step += 1
             pstats = metrics.pop("param_stats", None)
-            if pstats is not None and tr.save_stats_interval \
-                    and step % tr.save_stats_interval == 0:
-                with open(os.path.join(workdir, "grad_stats.jsonl"), "a") as f:
-                    f.write(json.dumps({"step": step, **to_host(pstats)}) + "\n")
-            logger.log(step, epoch, metrics)
+            if lead:
+                if pstats is not None and tr.save_stats_interval \
+                        and step % tr.save_stats_interval == 0:
+                    with open(os.path.join(workdir, "grad_stats.jsonl"), "a") as f:
+                        f.write(json.dumps({"step": step, **to_host(pstats)}) + "\n")
+                logger.log(step, epoch, metrics)
             if max_steps is not None and step >= max_steps:
                 break
         epoch += 1
         if tr.checkpoint_interval and epoch % tr.checkpoint_interval == 0:
-            save_checkpoint(workdir, model, optimizer, state, step)
+            if lead:
+                save_checkpoint(workdir, model, optimizer, state, step)
+            barrier()
         if val_ds is not None and tr.eval_interval and epoch % tr.eval_interval == 0:
-            logger.log_eval(step, _run_val(cfg, model, val_ds))
+            if lead:
+                logger.log_eval(step, _run_val(cfg, model, val_ds))
+            barrier()
         if max_steps is not None and step >= max_steps:
             break
 
-    save_checkpoint(workdir, model, optimizer, state, step)
-    logger.close()
+    if lead:
+        save_checkpoint(workdir, model, optimizer, state, step)
+        logger.close()
+    barrier()
     return model, state
 
 

@@ -11,6 +11,12 @@
 
 Every loss takes an optional element weight (which doubles as the
 validity mask of the fixed-shape padding) and an ``avg_factor``.
+
+Under data parallelism (``parallel/``) a rank holds its rows of the global
+batch, and the batch-wide terms are global: a mean loss is the rank's own
+sum over the global denominator (so the ranks' losses sum to the loss of
+the global batch), and the robust KL loss's EMA takes the global batch's
+mean.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from .ops.clip import clip
+from .parallel import global_mean, global_sum
 
 Tensor = torch.Tensor
 
@@ -31,7 +38,10 @@ def weighted_reduce(
     avg_factor: Optional[Tensor] = None,
     eps: float = 1e-12,
 ) -> Tensor:
-    """mmdet-style weighted reduction over a fixed-shape loss tensor."""
+    """mmdet-style weighted reduction over a fixed-shape loss tensor. The
+    denominator of a mean (``avg_factor``, the weights' sum or the element
+    count) is summed over the data-parallel ranks; the numerator is this
+    rank's own."""
     if weight is not None:
         loss = loss * weight
     if reduction == "none":
@@ -40,11 +50,11 @@ def weighted_reduce(
         return loss.sum()
     if avg_factor is None:
         if weight is None:
-            return loss.mean()
+            return loss.sum() / global_sum(loss.new_tensor(float(loss.numel())))
         w = torch.broadcast_to(weight, loss.shape)
-        return loss.sum() / clip(w.sum().to(loss.dtype), eps)
-    return loss.sum() / clip(torch.as_tensor(avg_factor, device=loss.device).to(loss.dtype),
-                             eps)
+        return loss.sum() / clip(global_sum(w.sum().to(loss.dtype)), eps)
+    return loss.sum() / clip(global_sum(torch.as_tensor(avg_factor, device=loss.device)
+                                        .to(loss.dtype)), eps)
 
 
 def _diff(pred: Tensor, target: Union[Tensor, int], absolute: bool) -> Tensor:
@@ -92,7 +102,7 @@ def robust_kl_loss(
     dw = diff * inverse_std
     loss = torch.where(dw < delta, 0.5 * dw.square(), delta * (dw - 0.5 * delta)) + logstd
     if training:
-        batch_mean = inverse_std.detach().mean()
+        batch_mean = global_mean(inverse_std.detach())
         new_mean_inv_std = (1.0 - momentum) * mean_inv_std + momentum * batch_mean
     else:
         new_mean_inv_std = mean_inv_std

@@ -46,6 +46,7 @@ from ..ops.roi_align import (
     align_strides, multilevel_roi_align_auto, prepare_pyramid, roi_grid_centers,
 )
 from ..ops.rotated_iou import bbox3d_overlaps_aligned
+from ..parallel import global_mean, global_sum
 from ..targets.assigner import AssignCfg, assign_max_iou
 from ..targets.dense_target import encode_noc_points, sparse_noc_targets
 from ..targets.rpn_targets import rpn_loss
@@ -403,6 +404,14 @@ class MonoRUn(nn.Module):
         the PnP inputs and outputs, the IoUs and the calibration error carry
         none. ``cfg`` overrides the model's config (the loss schedule).
 
+        Under data parallelism the batch is this rank's rows of the global
+        batch, and every reduction across samples is the global batch's
+        (``parallel/``): the losses' denominators (``losses.py``), the
+        projection loss's EMA, the score head's BatchNorm moments and
+        sampler counts, ``samp_w``'s mean and ``mean_iou``'s count; the
+        NOC targets' weights are normalised per image, as in JAX. Each
+        loss is then this rank's share of the global loss.
+
         batch: images (B, H, W, 3), cam (B, 3, 3), img_shapes (B, 2),
         scale_factor (B, 2), crop_offset (B, 2), gt_boxes (B, G, 4),
         gt_labels (B, G), gt_valid (B, G), ignore_boxes (B, I, 4),
@@ -623,7 +632,10 @@ class MonoRUn(nn.Module):
             torch.cat([pnp.t_vec, dims, pnp.yaw], 1).detach(),
         )
         ious = torch.where(pose_ok, ious, torch.zeros_like(ious))
-        losses["mean_iou"] = (ious * flat_pos_valid).sum() / clip(flat_pos_valid.sum(), 1)
+        # this rank's share of the global batch's mean (the step sums the
+        # ranks' metrics)
+        losses["mean_iou"] = (ious * flat_pos_valid).sum() / clip(
+            global_sum(flat_pos_valid.sum()), 1)
 
         # loss_calib: weight 0 until the loss schedule switches it on
         yaw_diff = (pnp.yaw[:, 0] - pose_gt[:, 3] + math.pi) % (2 * math.pi) - math.pi
@@ -647,7 +659,7 @@ class MonoRUn(nn.Module):
             score_uniform = uniforms(ious.shape)
         samp_w = iou3d_balanced_sample_weights(cfg.score_head, ious, score_uniform,
                                                valid=pose_ok)
-        samp_w = samp_w / clip(samp_w.mean(), 1e-2)
+        samp_w = samp_w / clip(global_mean(samp_w), 1e-2)
         losses["loss_score"] = sigmoid_bce_loss(
             logits[:, None], targets[:, None], weight=samp_w[:, None],
             avg_factor=pose_ok.sum(),

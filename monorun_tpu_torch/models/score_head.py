@@ -20,6 +20,7 @@ from torch import nn
 
 from ..config import ScoreHeadConfig
 from ..ops.clip import clip
+from ..parallel import global_sum
 from .layers import Linear
 
 Tensor = torch.Tensor
@@ -41,14 +42,16 @@ class BatchNormSmooth(nn.Module):
                 valid: Optional[Tensor] = None) -> Tensor:
         if train:
             # moments over the valid rows only (the reference only sees
-            # real RoIs), unbiased; no update from a single row
+            # real RoIs), unbiased; no update from a single row. Over the
+            # data-parallel ranks' rows: the global mean first, then the
+            # deviations from it (JAX's two passes over the global batch)
             with torch.no_grad():
                 xd = x.detach()
                 w = (torch.ones(xd.shape[0], dtype=xd.dtype, device=xd.device)
                      if valid is None else valid.to(xd.dtype))
-                n = w.sum()
-                m = (xd * w[:, None]).sum(0) / clip(n, 1.0)
-                v = (w[:, None] * (xd - m) ** 2).sum(0) / clip(n - 1.0, 1.0)
+                n = global_sum(w.sum())
+                m = global_sum((xd * w[:, None]).sum(0)) / clip(n, 1.0)
+                v = global_sum((w[:, None] * (xd - m) ** 2).sum(0)) / clip(n - 1.0, 1.0)
                 mom = self.momentum * (n > 1).to(xd.dtype)
                 self.running_mean.copy_((1 - mom) * self.running_mean + mom * m)
                 self.running_var.copy_((1 - mom) * self.running_var + mom * v)
@@ -104,13 +107,15 @@ def iou3d_balanced_sample_weights(
     """Random keep mask (as float weights) balancing the positive and
     negative score targets, with a smooth keep-rate ramp between the strong
     negative and strong positive IoUs; counts come from the valid rows, and
-    invalid rows get 0. ``uniform`` (same shape as ``ious``) is the draw."""
+    invalid rows get 0. ``uniform`` (same shape as ``ious``) is the draw.
+    The counts are the global batch's (summed over the data-parallel
+    ranks)."""
     thr = cfg.sampler_pos_iou_thr
     fmin, fmax = cfg.sampler_pos_fraction_min, cfg.sampler_pos_fraction_max
     vmask = torch.ones_like(ious, dtype=torch.bool) if valid is None else valid.bool()
-    num_total = vmask.sum().float()
+    num_total = global_sum(vmask.sum().float())
     pos = (ious >= thr) & vmask
-    num_pos = pos.sum().float()
+    num_pos = global_sum(pos.sum().float())
     num_neg = num_total - num_pos
     num_pos_max = fmax / (1 - fmax) * num_neg
     num_neg_max = (1 - fmin) / fmin * num_pos

@@ -6,7 +6,9 @@ process per source, all started together, into shared libraries with a
 plain C interface under ``build/torch_kernels/<hash>/`` at the repository
 root (the hash covers every source, header and flag), and loaded with
 ``ctypes``. A failed build, a refused launch or a bad argument raises;
-there is no fallback to a plain version.
+there is no fallback to a plain version. Processes that start together
+(the ranks of a data-parallel run) build one after another under a file
+lock on the build directory, so the later ones load what the first built.
 
 Kernels, each with a ``launches`` count (one per call that launches it):
 
@@ -31,7 +33,9 @@ binds another build of a staged kernel's C interface, for an A/B.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -91,6 +95,16 @@ def _finish_nvcc(jobs) -> Tuple[str, list]:
     return "\n".join(logs), failed
 
 
+@contextlib.contextmanager
+def _locked(out_dir: Path):
+    """An exclusive lock on ``out_dir`` for the body of a ``with`` (the
+    file's close, or the process's end, releases it)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
 def build_source(src: Path) -> Tuple[ctypes.CDLL, str]:
     """One source built alone with the same flags (into a directory named
     by the hash of its content and of the headers in its directory and in
@@ -130,10 +144,10 @@ class KernelBuild:
         for path in sorted(CSRC.iterdir()):
             digest.update(path.name.encode() + path.read_bytes())
         out_dir = BUILD_DIR / digest.hexdigest()[:16]
-        out_dir.mkdir(parents=True, exist_ok=True)
-        jobs = [_start_nvcc(src, out_dir / f"lib{src.stem}.so") for src in sources
-                if not (out_dir / f"lib{src.stem}.so").exists()]
-        log, failed = _finish_nvcc(jobs)
+        with _locked(out_dir):
+            jobs = [_start_nvcc(src, out_dir / f"lib{src.stem}.so") for src in sources
+                    if not (out_dir / f"lib{src.stem}.so").exists()]
+            log, failed = _finish_nvcc(jobs)
         if failed:
             raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
         self.log = log

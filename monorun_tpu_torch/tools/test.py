@@ -3,12 +3,21 @@
     python -m monorun_tpu_torch.tools.test kitti_multiclass CKPT.pth \
         --val-set --eval bbox bev 3d --result-dir results/
 
-Runs on the GPU unless ``--device cpu`` is given.
+Runs on the GPU unless ``--device cpu`` is given. Distributed over a
+host's N GPUs, one process each (the reference's ``--launcher`` and
+``multi_gpu_test``):
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m monorun_tpu_torch.tools.test kitti_multiclass CKPT --val-set --distributed
+
+``--batch-size`` is then the batch over the host's GPUs, as in the JAX
+package: each rank serves ``batch_size / N`` images of its strided shard.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 from typing import Dict, Optional, Sequence
 
@@ -16,6 +25,7 @@ from ..apis.inference import init_inference
 from ..apis.test import run_eval
 from ..config import apply_overrides, get_config
 from ..data.kitti import KITTI3DDataset
+from ..parallel import launch_env, process_group, rank
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -38,7 +48,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--criteria", default="R40", choices=["R40", "R11"])
     p.add_argument("--cfg-options", nargs="*", default=[])
     p.add_argument("--distributed", action="store_true",
-                   help="not yet: comes with the port's multi-GPU slice")
+                   help="one process per GPU under python -m torch.distributed.run; "
+                        "each evaluates its shard of the dataset")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     return p.parse_args(argv)
@@ -46,28 +57,33 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     args = parse_args(argv)
+    batch_size = args.batch_size
     if args.distributed:
-        raise NotImplementedError(
-            "--distributed comes with the port's multi-GPU slice "
-            "(torch.distributed)"
-        )
+        local_world = int(launch_env()["LOCAL_WORLD_SIZE"])
+        if batch_size % local_world:
+            raise SystemExit(f"--batch-size {batch_size} must be a multiple of the mesh "
+                             f"size {local_world}")
+        batch_size //= local_world
     cfg = apply_overrides(get_config(args.config), args.cfg_options)
     if args.val_set:
         root, lst, labels = cfg.data.train_root, cfg.data.val_list, True
     else:
         root, lst, labels = cfg.data.test_root, cfg.data.test_list, False
     ds = KITTI3DDataset(root, lst, classes=cfg.data.classes, with_labels=labels)
-    session = init_inference(
-        cfg, args.checkpoint, batch_size=args.batch_size,
-        explicit_lazy=any(o.startswith("neck.lazy_lower") for o in args.cfg_options),
-        device=args.device,
-    )
-    ap = run_eval(
-        session, ds, batch_size=args.batch_size, metrics=args.eval,
-        result_dir=args.result_dir, show_dir=args.show_dir,
-        show_score_thr=args.show_score_thr,
-    )
-    if args.summary_file and ap:
+    with (process_group(device=args.device) if args.distributed
+          else contextlib.nullcontext(args.device)) as device:
+        session = init_inference(
+            cfg, args.checkpoint, batch_size=batch_size,
+            explicit_lazy=any(o.startswith("neck.lazy_lower") for o in args.cfg_options),
+            device=device,
+        )
+        ap = run_eval(
+            session, ds, batch_size=batch_size, metrics=args.eval,
+            result_dir=args.result_dir, show_dir=args.show_dir,
+            show_score_thr=args.show_score_thr, distributed=args.distributed,
+        )
+        lead = rank() == 0          # read while the group exists
+    if args.summary_file and ap and lead:
         with open(args.summary_file, "w") as f:
             json.dump(ap, f, indent=2)
     return ap

@@ -26,6 +26,7 @@ import torch
 
 from .config import MonoRUnConfig, apply_loss_schedule, get_config
 from .models.detector import MonoRUn, TrainDraws, init_random_weights
+from .parallel import all_reduce_sum
 
 Tensor = torch.Tensor
 
@@ -265,13 +266,25 @@ def train_step(
     """One optimisation step: the losses at the config the loss schedule
     gives this step, the gradient of every parameter, the optimizer's
     update. Returns the new state and the metrics (the losses, mean_iou,
-    total_loss, nonfinite_grad_leaves)."""
+    total_loss, nonfinite_grad_leaves).
+
+    Data-parallel (a process group of N ranks, ``parallel/``): ``batch``
+    and ``draws`` are this rank's rows of the global batch, and each rank's
+    losses are its share of the global batch's (``train_forward``). So the
+    gradient is summed over the ranks (SUM, not a mean), in one flat
+    all-reduce, before the zap, the clip and AdamW: every rank then takes
+    JAX's global-batch update, and the parameters, ``loss_ema`` and the
+    score BatchNorm's statistics stay equal on every rank. Every gradient
+    is reduced, the frozen ones too, so that the statistics taken after it
+    are the global batch's. The logged losses and ``mean_iou`` are summed
+    over the ranks too."""
     cfg = apply_loss_schedule(model.cfg, state.step)
     params = optimizer.params
     total, (metrics, new_ema) = model.train_forward(batch, state.loss_ema, draws, generator,
                                                     cfg=cfg)
     grads = torch.autograd.grad(total, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    grads = all_reduce_sum([torch.zeros_like(p) if g is None else g
+                            for p, g in zip(params, grads)])
     stats = {}
     if with_grad_stats:
         stats.update(grad_stats(optimizer.names, grads))
@@ -279,8 +292,8 @@ def train_step(
         stats["param_stats"] = param_grad_stats(optimizer.names, grads,
                                                 [p.detach().clone() for p in params])
     optimizer.step(grads)
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["total_loss"] = total.detach()
+    metrics = dict(metrics, total_loss=total)
+    metrics = dict(zip(metrics, all_reduce_sum([v.detach() for v in metrics.values()])))
     metrics["nonfinite_grad_leaves"] = count_nonfinite_leaves(grads)
     metrics.update(stats)
     return TrainState(step=state.step + 1, loss_ema=new_ema.detach()), metrics

@@ -332,10 +332,20 @@ def test_pth_lazy_lower_rule(tmp_path):
     shutil.rmtree(step)
 
 
-def test_run_eval_distributed_waits_for_the_multi_gpu_slice(world):
-    ds = TDataset(world["root"], "train_list.txt")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        trun_eval(world["tsess"], ds, batch_size=B, distributed=True)
+def test_run_eval_distributed_at_world_size_one_is_the_plain_run(world):
+    """Without a process group the shard is the whole dataset: the same
+    batches, seeds, results and AP as ``distributed=False``."""
+    runs = []
+    for distributed in (False, True):
+        ds = TDataset(world["root"], "train_list.txt")
+        ap = trun_eval(world["tsess"], ds, batch_size=B, print_summary=False, progress=False,
+                       distributed=distributed)
+        runs.append((ds.results, ap))
+    (plain, ap_plain), (dist, ap_dist) = runs
+    assert ap_dist == ap_plain
+    assert len(dist) == len(plain) == N_IMAGES
+    for a, b in zip(dist, plain):
+        assert sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in b)
 
 
 TINY_OPTIONS = [
@@ -374,8 +384,8 @@ def test_tools_test_and_prepare_kitti(world, tmp_path):
     _, ref_ap = jke.kitti_eval([], [], ("Car", "Pedestrian", "Cyclist"))
     assert list(ap) == list(ref_ap) and all(np.isfinite(v) for v in ap.values())
     assert len(os.listdir(results)) == N_IMAGES
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tools_test.main(argv + ["--distributed"])
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
+        tools_test.main(argv + ["--distributed"])     # not launched by torchrun
 
 
 def test_show_result_pixel_equal(world):

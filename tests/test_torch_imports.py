@@ -25,7 +25,8 @@ def test_port_imports_with_jax_and_reference_blocked():
                  "eval", "eval.kitti_eval", "eval.rotated_iou_np", "eval._native",
                  "apis.test", "utils.visualizer", "tools.test", "tools.prepare_kitti",
                  "demo", "demo.infer_imgs", "demo.infer_webcam", "apis.train",
-                 "utils.checkpoint", "tools.train"):
+                 "utils.checkpoint", "tools.train", "parallel", "parallel.mesh",
+                 "parallel.gather"):
         assert f"monorun_tpu_torch.{name}" in names, name
     code = (
         "import sys\n"
@@ -40,6 +41,20 @@ def test_port_imports_with_jax_and_reference_blocked():
         [sys.executable, "-c", code], cwd=PKG.parent, capture_output=True,
         text=True, timeout=300,
     )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_parallel_layer_imports_with_jax_and_reference_blocked():
+    """The data-parallel layer, alone in a fresh interpreter."""
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import monorun_tpu_torch.parallel.mesh, monorun_tpu_torch.parallel.gather\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True,
+                         text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
