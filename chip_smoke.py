@@ -15,15 +15,17 @@ Run from the repository root:
     python3 chip_smoke.py --ab NAME=SOURCE
                                           # the same for the staged kernel
                                           # NAME of the kernels line (e.g.
-                                          # roi_align_band_matmul), phase 6
+                                          # roi_align_band_matmul), phase 6,
+                                          # or the backward
+                                          # (roi_align_backward), phases 9-10
 
 Phases, each printing its own lines:
 
 1. the card's name and power limit, as nvidia-smi gives them;
 2. the build of every hand-written CUDA RoIAlign kernel
    (``monorun_tpu_torch/csrc/*.cu``, one nvcc per source, in parallel),
-   and the global atomics in the backward's SASS (``cuobjdump -sass``):
-   the run fails unless each is a vector reduction of 4 float32;
+   and the atomics in the backward's SASS (``cuobjdump -sass``): the run
+   fails on any (the backward sums in a fixed order);
 3. the direct kernel (``csrc/roi_align.cu``) against its plain PyTorch
    version on a kitti_multiclass-sized pyramid (batch 8, C=256, levels
    96x320, 96x320, 48x160, 24x80, 12x40) at the three main-path shapes,
@@ -63,18 +65,32 @@ Phases, each printing its own lines:
    training step's three shapes (1536 sampled RoIs at 7x7, 384 positives
    at 7x7 and 14x14), in bfloat16 and float32, both outputs (the level
    and the RoI gradients), with the kernel's time, its bound and share of
-   the bound, the plain version's time and an empty launch's time;
+   the bound, its design's bytes, the plain version's time and an empty
+   launch's time; a second call bit-equal to the first; the heaviest
+   tile's RoI count (from the kernel's own index pass, the RoIs whose
+   output gradient is zero left out as the kernel leaves them); the parts
+   timed alone (the index pass, the levels' gradient with it, the RoIs'
+   gradient); with ``--ab roi_align_backward=SOURCE`` (a build of the
+   current interface, or of the earlier float32-scratch one,
+   ``ScratchBackward``) that build in turns with this one, its agreement
+   with the plain version and whether it equals this one bit for bit,
+   its design bytes, and its parts alone (the index pass, the levels',
+   the RoIs'; for the scratch interface the scratch's zero fill, the
+   kernel on the levels, on the RoIs, the cast);
 10. training kitti_multiclass at full width (batch samples_per_device=3,
    384x1280, bfloat16 compute, seeded random weights, a seeded
    ``synthetic_train_batch``) through ``create_train_state`` ->
    ``train_step``: 3 AdamW steps, every loss present and finite, no
    non-finite gradient leaf, frozen parameters fixed and trainable ones
-   moved, exactly 3 forward and 3 backward launches of the direct kernels
-   per step and none of a staged kernel, each of the first step's three
+   moved, exactly 3 forward launches of the direct kernel and 9 of its
+   backward per step (3 per align: the per-RoI kernel, the bucket sort,
+   the tile kernel; ``STEP_LAUNCHES``) and none of a staged kernel, each
+   of the first step's three
    aligns (1536 sampled RoIs and 384 positives, bfloat16) against the plain
    version on its own features and RoIs, the backward re-run on the
    step's own features, RoIs and output gradients through the kernel and
-   the plain version (with times as in phase 9), ms per step (median over
+   the plain version (with times as in phase 9), and again on them cast
+   to float32 (phase 16's compute dtype), ms per step (median over
    the steps after the first) and peak memory;
 11. a tiny float32 training step on the GPU (kernels) and on the CPU
    (plain version) with the same weights and batch, and the draws of one
@@ -111,7 +127,7 @@ Phases, each printing its own lines:
    4 steps (``--max-steps 4``, one epoch) and a second that resumes from
    its ``step_4`` for the second epoch, a checkpoint and a validation
    (``_run_val``, batch 2) every epoch, a log record every step: exactly
-   3 direct and 3 backward launches per step and 3 direct launches per
+   3 direct and 9 backward launches per step and 3 direct launches per
    validation batch, none of another kernel; the first step's three
    aligns against the plain version, forward and backward (as in phase
    10), and the first validation batch's (batch 2: 2000 proposals, 96
@@ -134,11 +150,11 @@ Phases, each printing its own lines:
    summed losses to 1e-4 relative (1e-3 after the PnP) and rank 0's
    all-reduced gradients to 1e-3 of each leaf's scale (phase 11's
    tolerances), the ranks' parameters, buffers and ``loss_ema`` bit-equal,
-   3 direct and 3 backward launches per rank and none of a staged kernel,
+   3 direct and 9 backward launches per rank and none of a staged kernel,
    each rank's aligns against the plain version (as in phase 10); (iii)
    the same two ranks through ``train_detector`` at kitti_multiclass (bf16,
    a global batch of 6) on phase 15's 12 training images for 3 epochs:
-   3 + 3 launches per step per rank, ms per step per rank (between the
+   3 + 9 launches per step per rank, ms per step per rank (between the
    ends of an epoch's consecutive steps), global img/s and the gradient
    all-reduce's ms and share of a step, beside phase 15's world-1 loop;
    (ii) one rank under NCCL at world size 1: ``tools.train
@@ -171,13 +187,13 @@ weights are rounded to bfloat16, and each axis's weights sum to at most
 The backward kernel against the plain version's autograd in float32 on
 the same (upcast) inputs and output gradient, rounded once to the level's
 dtype: level gradients |d| <= r |ref| + 1e-5 max|ref|, r = 1e-5 in float32
-(float32 atomics sum hundreds of taps in another order) and 2^-7 in
+(the tile kernel sums hundreds of taps in another order) and 2^-7 in
 bfloat16 (both sides one bfloat16 rounding of float32 sums); RoI
 gradients (float32 in both) |d| <= 1e-4 |ref| + 1e-4 max|ref| (channel
 sums over hundreds of taps in another order). The tiny training step, GPU against
 CPU: losses to 1e-4 relative (1e-3 after the PnP), each gradient to 1e-3
-of its leaf's largest entry (cuDNN's convolution backward and the atomics
-sum in other orders).
+of its leaf's largest entry (cuDNN's convolution backward and the align
+backward sum in other orders than the CPU).
 
 Bounds: the least time for a call is the larger of the bytes it must move
 (the feature rows its taps touch with non-zero weight, the RoIs and the
@@ -191,10 +207,15 @@ gradient written once in the level's dtype, the RoIs read and their
 gradient written; operations 2 FLOPs per channel per distinct tap of a
 bin (the level gradient) and 2 x 2 per channel per tap of a computed
 sample (the RoI gradient along each axis). Printed apart as
-``design_bytes`` and ``design_ms`` (over 3.35 TB/s): the bytes this
-kernel's design moves, which adds the float32 scratch of every level
+``design_bytes`` and ``design_ms`` (over 3.35 TB/s): the bytes the
+kernels' design moves, which reads the output gradient once in the
+per-RoI kernel and again for every tile a RoI meets (the bins staged
+there, counted from the kernel's own index pass by ``tile_loads``), and
+writes the tap lists once and reads them for every such tile;
+and for an A/B build of the float32-scratch interface the bytes of that
+design (``scratch_design_bytes``: the scratch of every level
 zero-filled, a float32 read-modify-write of each touched cell, and for
-bfloat16 levels the cast (4 bytes read, 2 written per element).
+bfloat16 levels the cast, 4 bytes read and 2 written per element).
 
 Any failed phase, or no GPU, exits non-zero without the last line.
 """
@@ -203,6 +224,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -237,13 +259,12 @@ from monorun_tpu_torch.demo import infer_imgs
 from monorun_tpu_torch.eval import _native as kitti_native
 from monorun_tpu_torch.eval.kitti_eval import kitti_eval
 from monorun_tpu_torch.models.detector import (
-    HeadDraws, MonoRUn, TrainDraws, init_random_weights,
+    HeadDraws, MonoRUn, init_random_weights,
 )
-from monorun_tpu_torch.models.global_head import train_dropout_masks
-from monorun_tpu_torch.models.rpn import get_proposals
 from monorun_tpu_torch.train import create_train_state, make_optimizer, train_step
 from monorun_tpu_torch.utils import checkpoint as ckpt
 from monorun_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from monorun_tpu_torch.utils.draws import train_draws
 from monorun_tpu_torch.utils.synthetic import synthetic_train_batch
 from monorun_tpu_torch.ops import roi_align as ra
 from monorun_tpu_torch.ops import roi_align_band as rb
@@ -338,13 +359,14 @@ def max_err(got: torch.Tensor, ref: torch.Tensor):
 
 
 def backward_reductions() -> dict:
-    """The global atomics and reductions in the loaded backward build's
-    SASS (``cuobjdump -sass``), counted by instruction."""
+    """The atomics and reductions in memory (global or shared) in the loaded
+    backward build's SASS (``cuobjdump -sass``), counted by instruction."""
     lib = rc.build_all.libs["roi_align_bwd"]._name
     cuobjdump = Path(rc._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", lib], capture_output=True, text=True,
                           check=True).stdout
-    ops = re.findall(r"\b((?:RED|ATOM)G?\.[A-Za-z0-9_.]+)", sass)
+    # a barrier's reduction (BAR.RED, __syncthreads_or) is not one
+    ops = re.findall(r"(?<!BAR\.)\b((?:RED|ATOM)[GS]?\.[A-Za-z0-9_.]+)", sass)
     return {op: ops.count(op) for op in sorted(set(ops))}
 
 
@@ -370,23 +392,44 @@ def align_work(feats, rois, strides, out_size, finest, max_ratio):
     return nbytes, 2 * 4 * C * samples
 
 
-def backward_work(feats, rois, strides, out_size, finest, max_ratio):
+def backward_work(feats, rois, strides, out_size, finest, max_ratio, tiles):
     """(bytes, FLOPs, design bytes) of one backward call on these inputs:
     what the function must move and do (the bound of the module
-    docstring), and the bytes the kernel's design moves (with the float32
-    scratch's zero fill, read-modify-write and cast)."""
+    docstring), and the bytes the kernels' design moves from memory: the
+    per-RoI kernel's (the output gradient and the touched cells read once,
+    the tap lists, rectangles, keys and flags written), the sort's, and
+    the tile kernel's as ``tiles`` (``tile_loads``) counts them from the
+    kernel's own index pass (each hit's staged bins, its lists and its
+    bucket's walk, again for every tile it meets), then the level
+    gradient written once."""
     C, item = feats[0].shape[-1], feats[0].element_size()
     touched, samples = touched_cells(feats, rois, strides, out_size, finest, max_ratio)
     n = rois.shape[0]
     bins = n * out_size[0] * out_size[1]
     cells = sum(f.shape[0] * f.shape[1] * f.shape[2] for f in feats)
     nbytes = bins * C * item + touched * C * item + cells * C * item + n * 5 * 4 * 2
-    cast = 6 if feats[0].dtype == torch.bfloat16 else 0
-    design = (bins * C * item + touched * C * (item + 8) + cells * C * (4 + cast)
-              + n * 5 * 4 * 2)
+    lists = n * sum(out_size) * 2 * max_ratio * 8
+    design = (bins * C * item + touched * C * item + cells * C * item + lists
+              + tiles["staged_grad_bytes"] + tiles["list_read_bytes"]
+              + tiles["bucket_read_bytes"] + n * (5 * 4 * 2 + 4 * 4 * 2 + 4 * 3 + 4 * 4))
     distinct = tap_counts(feats, rois, strides, out_size, finest, max_ratio)[
         "distinct_taps_per_bin"] * bins
     return nbytes, int(2 * C * distinct + 2 * 2 * 4 * C * samples), design
+
+
+def scratch_design_bytes(feats, rois, strides, out_size, finest, max_ratio):
+    """The bytes a backward of the float32-scratch interface
+    (``ScratchBackward``) moves: the scratch of every level zero-filled, a
+    float32 read-modify-write of each touched cell, and for bfloat16
+    levels the cast (4 bytes read, 2 written per element)."""
+    C, item = feats[0].shape[-1], feats[0].element_size()
+    touched, _ = touched_cells(feats, rois, strides, out_size, finest, max_ratio)
+    n = rois.shape[0]
+    bins = n * out_size[0] * out_size[1]
+    cells = sum(f.shape[0] * f.shape[1] * f.shape[2] for f in feats)
+    cast = 6 if feats[0].dtype == torch.bfloat16 else 0
+    return (bins * C * item + touched * C * (item + 8) + cells * C * (4 + cast)
+            + n * 5 * 4 * 2)
 
 
 def tap_counts(feats, rois, strides, out_size, finest, max_ratio):
@@ -867,6 +910,10 @@ def phase_micro():
 # ---- the direct kernel's backward ---------------------------------------------
 
 # (rtol, atol share of max |ref|) of the level and the RoI gradients
+# launches of one align's backward (the per-RoI kernel, the bucket sort and
+# the tile kernel), and of a training step's three aligns, forward and back
+BACKWARD_LAUNCHES = 3
+STEP_LAUNCHES = {"roi_align": 3, "roi_align_backward": 3 * BACKWARD_LAUNCHES}
 GRAD_TOLERANCE = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (1e-5, 1e-5)}
 ROI_GRAD_TOLERANCE = (1e-4, 1e-4)
 TRAIN_STEPS = 3
@@ -894,52 +941,241 @@ def grad_err(got, ref, rtol, atol_rel):
     return float(d.max()), bool(torch.isfinite(got).all()) and bool((d <= bound).all())
 
 
+class ScratchBackward:
+    """Another build of the backward with the float32-scratch C interface
+    (an earlier ``csrc/roi_align_bwd.cu``: ``roi_align_backward`` adds every
+    tap into one zeroed float32 scratch of all levels with a float4 atomic,
+    which the wrapper then casts to the levels' dtype), for ``--ab
+    roi_align_backward=SOURCE`` in phase 9. Its fill, kernel and cast are
+    timed apart."""
+
+    def __init__(self, source: Path):
+        self.source = Path(source)
+        self.build_log = ""
+        self._lib = None
+
+    def build(self):
+        if self._lib is not None:
+            return self._lib
+        lib, self.build_log = rc.build_source(self.source)
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.roi_align_backward.argtypes = [
+            I, I, ctypes.POINTER(P), ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(F),
+            ctypes.POINTER(ctypes.c_longlong), P, P, P, P, I, I, I, I, I, I, F, F, P]
+        lib.roi_align_backward.restype = I
+        lib.roi_align_backward_shape.argtypes = [I] * 3 + [ctypes.POINTER(I)] * 2
+        lib.roi_align_backward_shape.restype = I
+        self._lib = lib
+        return lib
+
+    def scratch(self, feats):
+        return torch.zeros(sum(f[..., 0].numel() for f in feats) * feats[0].shape[-1],
+                           dtype=torch.float32, device=feats[0].device)
+
+    def cast(self, feats, scratch):
+        out, o = [], 0
+        for f in feats:
+            out.append(scratch[o:o + f.numel()].view(f.shape).to(f.dtype))
+            o += f.numel()
+        return out
+
+    def launch(self, feats, rois, grad_out, strides, out_size, finest, max_ratio, scratch,
+               partial):
+        lib = self.build()
+        ptrs, dims = rc._level_args(feats, strides, max_ratio)
+        levels = len(feats)
+        offsets = [sum(g.numel() for g in feats[:i]) for i in range(levels)]
+        rc_ = lib.roi_align_backward(
+            int(feats[0].dtype == torch.bfloat16), levels, (ctypes.c_void_p * levels)(*ptrs),
+            (ctypes.c_longlong * len(dims))(*dims),
+            (ctypes.c_float * levels)(*[1.0 / s for s in strides]),
+            (ctypes.c_longlong * levels)(*offsets), rois.data_ptr(), grad_out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            partial.data_ptr() if partial is not None else None,
+            rois.shape[0], feats[0].shape[0], feats[0].shape[-1], out_size[0], out_size[1],
+            int(max_ratio), float(finest), float(ra.LONG_SPAN_CAP * strides[0]),
+            rc._stream(feats[0].device))
+        check(rc_ == 0, f"the A/B backward {self.source} failed to launch ({rc_})")
+
+    def partial(self, rois, out_size):
+        warps, split = ctypes.c_int(), ctypes.c_int()
+        self.build().roi_align_backward_shape(rois.shape[0], out_size[0], out_size[1],
+                                              ctypes.byref(warps), ctypes.byref(split))
+        return torch.empty((split.value, rois.shape[0], 4), dtype=torch.float32,
+                           device=rois.device)
+
+    def __call__(self, feats, rois, grad_out, strides, out_size, finest, max_ratio):
+        scratch, partial = self.scratch(feats), self.partial(rois, out_size)
+        self.launch(feats, rois, grad_out, strides, out_size, finest, max_ratio, scratch,
+                    partial)
+        d_rois = torch.cat([partial.new_zeros(rois.shape[0], 1), partial.sum(0)], 1)
+        return self.cast(feats, scratch), d_rois
+
+
+def tile_loads(kernel, feats, rois, grad_out, strides, out_size, finest, max_ratio):
+    """The tile kernel's work on a call, from the kernel's own index pass
+    and without the RoIs whose output gradient is zero (which it leaves
+    out): the most RoIs a tile walks (the stride-4 levels are where they
+    pile up), the mean over tiles that walk any, and the tiles that do,
+    with the tile shape and the RoIs left out; and the bytes it reads
+    again for every tile a RoI meets: the output gradient of the bins it
+    stages there (the span of bin rows whose row list reaches the tile's
+    rows times the span of bin columns whose column list reaches its
+    columns, as the kernel stages them), the RoI's lists, and for every
+    block its bucket's order and rectangles."""
+    ix = kernel.index(feats, rois, strides, out_size, finest, max_ratio, ra.LONG_SPAN_CAP)
+    tile = kernel.tile(feats[0].dtype)
+    th, tw = tile["rows"], tile["cols"]
+    L, C, item = len(feats), feats[0].shape[-1], feats[0].element_size()
+    slices = -(-C // tile["channels"])
+    oh = out_size[0]
+    zero = (grad_out.flatten(1) == 0).all(1)
+    rects = ix.rects.long()
+    kept = ~zero & (rects[:, 1] > rects[:, 0]) & (rects[:, 3] > rects[:, 2])
+    taps = ix.lists[..., 0].long()
+    live = (taps >= 0) & (ix.lists[..., 1].view(torch.float32) != 0)
+
+    def spans(lists, live, lo, hi, size):
+        """Per RoI, the sum over the tiles [lo, hi] it meets along one axis
+        of the span of bins whose list reaches the tile."""
+        idx = torch.where(live, lists // size, -1)
+        total = torch.zeros_like(lo)
+        for k in range(int((hi - lo).max()) + 1 if lo.numel() else 0):
+            reach = (idx == (lo + k)[:, None, None]).any(-1)          # (m, bins of the axis)
+            has = reach.any(1)
+            first = reach.int().argmax(1)
+            last = reach.shape[1] - 1 - reach.flip(1).int().argmax(1)
+            total += torch.where(has & (lo + k <= hi), last - first + 1, 0)
+        return total
+
+    r = rects[kept]
+    ty0, ty1 = r[:, 0] // th, (r[:, 1] - 1) // th
+    tx0, tx1 = r[:, 2] // tw, (r[:, 3] - 1) // tw
+    staged = (spans(taps[kept, :oh], live[kept, :oh], ty0, ty1, th)
+              * spans(taps[kept, oh:], live[kept, oh:], tx0, tx1, tw))
+    hits = int(((ty1 - ty0 + 1) * (tx1 - tx0 + 1)).sum())
+    grids = {}
+    keys = ix.keys.cpu().numpy()
+    for key, (r0, r1, c0, c1) in zip(keys[kept.cpu().numpy()], r.cpu().numpy()):
+        b, lvl = divmod(int(key), L)
+        H, W = feats[lvl].shape[1:3]
+        g = grids.setdefault((b, lvl), np.zeros((-(-H // th), -(-W // tw)), np.int64))
+        g[r0 // th:(r1 - 1) // th + 1, c0 // tw:(c1 - 1) // tw + 1] += 1
+    # every block of a level walks its bucket's order and rectangles
+    counts = np.bincount(keys[(~zero).cpu().numpy()], minlength=feats[0].shape[0] * L)
+    walked = sum(int(counts[b * L + lvl]) * -(-f.shape[1] // th) * -(-f.shape[2] // tw)
+                 for lvl, f in enumerate(feats) for b in range(f.shape[0])) * slices
+    loads = np.concatenate([g.ravel() for g in grids.values()]) if grids else np.zeros(1)
+    busy = loads[loads > 0]
+    worst = max(grids, key=lambda k: grids[k].max()) if grids else (0, 0)
+    return dict(tile=tile, zero_gradient_rois=int(zero.sum()), max_rois_per_tile=int(loads.max()),
+                max_tile_level=int(worst[1]),
+                mean_rois_per_busy_tile=float(busy.mean()) if busy.size else 0.0,
+                busy_tiles=int(busy.size), tile_hits=hits,
+                staged_bins=int(staged.sum()),
+                staged_grad_bytes=int(staged.sum()) * C * item,
+                list_read_bytes=hits * slices * ix.lists[0].numel() * 4,
+                bucket_read_bytes=walked * (4 + 16))
+
+
 def compare_backward(label, feats, rois, grad_out, strides, out_size, finest, max_ratio,
-                     flush):
-    """Backward kernel against the plain version's autograd on one call;
-    prints one line and returns its record."""
+                     flush, split=False, ab=()):
+    """Backward kernel against the plain version's autograd on one call,
+    with its bit-repeatability and its tiles' load; ``split`` also times
+    its parts alone (the index pass, the levels' gradient, the RoIs'), and
+    ``ab`` other builds (``ScratchBackward``, or ``RoIAlignBackwardKernel``
+    of another source) in turns with this one (other, this, this, other),
+    their parts, design bytes, and whether their outputs equal this one's
+    bit for bit. Prints one line and returns its record."""
     kernel = rc.roi_align_backward_kernel
     dtype = feats[0].dtype
+    spec = (strides, out_size, finest, max_ratio, ra.LONG_SPAN_CAP)
 
-    def run_kernel():
-        return kernel(feats, rois, grad_out, strides, out_size, finest, max_ratio,
-                      ra.LONG_SPAN_CAP)
+    def run_kernel(**kw):
+        return kernel(feats, rois, grad_out, *spec, **kw)
 
     def run_plain():
         return plain_grads(feats, rois, strides, out_size, finest, max_ratio, grad_out)
 
     (d_levels, d_rois), (ref_levels, ref_rois) = run_kernel(), run_plain()
+    again_levels, again_rois = run_kernel()
     torch.cuda.synchronize()
+    repeats = (all(torch.equal(a, b) for a, b in zip(d_levels, again_levels))
+               and torch.equal(d_rois, again_rois))
+    del again_levels, again_rois
     errs = [grad_err(g, r.to(dtype), *GRAD_TOLERANCE[dtype])
             for g, r in zip(d_levels, ref_levels)]
     roi_err, roi_ok = grad_err(d_rois, ref_rois, *ROI_GRAD_TOLERANCE)
-    nbytes, flops, design = backward_work(feats, rois, strides, out_size, finest, max_ratio)
+    tiles = tile_loads(kernel, feats, rois, grad_out, *spec[:-1])
+    nbytes, flops, design = backward_work(feats, rois, strides, out_size, finest, max_ratio,
+                                          tiles)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     rec = dict(call=label, dtype=str(dtype).replace("torch.", ""), rois=int(rois.shape[0]),
                out=list(out_size), max_ratio=max_ratio,
                max_abs_err_levels=max(e for e, _ in errs), max_abs_err_rois=roi_err,
                max_abs_ref_levels=max(float(r.abs().max()) for r in ref_levels),
-               max_abs_ref_rois=float(ref_rois.abs().max()),
+               max_abs_ref_rois=float(ref_rois.abs().max()), bit_repeatable=repeats,
                ms=device_ms(run_kernel, 15, flush), plain_ms=device_ms(run_plain, 3, flush),
                empty_ms=device_ms(roi_align_kernel.empty_launch, 15, flush),
                bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                design_bytes=design, design_ms=design / HBM_BYTES_PER_S * 1e3,
-               launch_shape=kernel.launch_shape(int(rois.shape[0]), out_size))
+               launch_shape=kernel.launch_shape(int(rois.shape[0]), out_size), **tiles)
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     rec["max_abs_err"] = max(rec["max_abs_err_levels"], roi_err)
+    if split:
+        rec["split_ms"] = dict(
+            index=device_ms(lambda: kernel.index(feats, rois, *spec), 15, flush),
+            levels=device_ms(lambda: run_kernel(need_rois=False), 15, flush),
+            rois=device_ms(lambda: run_kernel(need_features=False), 15, flush))
+    rec["ab"] = []
+    for other in ab:
+        scratch_build = isinstance(other, ScratchBackward)
+        args = (feats, rois, grad_out) + (spec[:-1] if scratch_build else spec)
+        (o_levels, o_rois) = other(*args)
+        o_errs = [grad_err(g, r.to(dtype), *GRAD_TOLERANCE[dtype])
+                  for g, r in zip(o_levels, ref_levels)]
+        o_ok = all(ok for _, ok in o_errs) and grad_err(o_rois, ref_rois,
+                                                        *ROI_GRAD_TOLERANCE)[1]
+        same = (all(torch.equal(a, b) for a, b in zip(o_levels, d_levels))
+                and torch.equal(o_rois, d_rois))
+        del o_levels, o_rois
+        calls = {other: lambda: other(*args), kernel: run_kernel}
+        turns = [device_ms(calls[k], 15, flush) for k in (other, kernel, kernel, other)]
+        if scratch_build:
+            scratch, partial = other.scratch(feats), other.partial(rois, out_size)
+            parts = dict(
+                fill=device_ms(lambda: other.scratch(feats), 15, flush),
+                cast=device_ms(lambda: other.cast(feats, scratch), 15, flush),
+                levels=device_ms(lambda: other.launch(*args, scratch, None), 15, flush),
+                rois=device_ms(lambda: other.launch(*args, None, partial), 15, flush))
+            del scratch
+            o_design = scratch_design_bytes(feats, rois, *spec[:-1])
+        else:
+            parts = dict(
+                index=device_ms(lambda: other.index(feats, rois, *spec), 15, flush),
+                levels=device_ms(lambda: other(*args, need_rois=False), 15, flush),
+                rois=device_ms(lambda: other(*args, need_features=False), 15, flush))
+            o_design = backward_work(feats, rois, *spec[:-1], tile_loads(
+                other, feats, rois, grad_out, *spec[:-1]))[2]
+        rec["ab"].append(dict(
+            source=str(other.source), agrees=o_ok, bit_equal=same, ms_turns=turns,
+            ms=statistics.median([turns[0], turns[3]]), this_ms=statistics.median(turns[1:3]),
+            split_ms=parts, design_bytes=o_design))
     print("backward " + json.dumps(rec), flush=True)
     check(all(ok for _, ok in errs), f"backward kernel and plain autograd disagree on the "
                                      f"level gradients of {label} ({rec['dtype']})")
     check(roi_ok, f"backward kernel and plain autograd disagree on the RoI gradient of "
                   f"{label} ({rec['dtype']}): max abs error {roi_err}")
+    check(repeats, f"two backward calls on {label} ({rec['dtype']}) differ")
     return rec
 
 
-def phase_backward(cfg, flush, dev):
+def phase_backward(cfg, flush, dev, ab=()):
     """The backward kernel on the batch-8 pyramid of phase 3 at the training
     step's three align shapes (per image: 512 sampled RoIs and 128
-    positives at batch 3, so 1536 and 384), in both dtypes."""
+    positives at batch 3, so 1536 and 384), in both dtypes, its parts
+    timed apart, and ``ab`` (``ScratchBackward`` builds) in turns."""
     gen = torch.Generator(device=dev).manual_seed(2)
     H, W = cfg.data.pad_height, cfg.data.pad_width
     strides = ra.align_strides(cfg.neck.lazy_lower, cfg.bbox_head.featmap_strides)
@@ -963,7 +1199,8 @@ def phase_backward(cfg, flush, dev):
             grad_out = torch.randn((rois.shape[0],) + out_size + (feats[0].shape[-1],),
                                    generator=gen, device=dev).to(dtype)
             recs.append(compare_backward(f"synthetic {label}", feats, rois, grad_out,
-                                         strides, out_size, finest, mr, flush))
+                                         strides, out_size, finest, mr, flush, split=True,
+                                         ab=ab))
         del feats
     return recs
 
@@ -980,9 +1217,10 @@ def check_train_metrics(m, what):
           f"{what}: {int(m['nonfinite_grad_leaves'])} non-finite gradient leaves")
 
 
-def phase_train(flush, dev, card):
+def phase_train(flush, dev, card, ab=()):
     """kitti_multiclass training at full width: 3 AdamW steps on a seeded
-    synthetic batch, with the checks of the module docstring (phase 10)."""
+    synthetic batch, with the checks of the module docstring (phase 10);
+    the step's backward aligns timed in parts and against ``ab``."""
     cfg = get_config("kitti_multiclass")
     Bt = cfg.train.samples_per_device
     H, W = cfg.data.pad_height, cfg.data.pad_width
@@ -1012,13 +1250,13 @@ def phase_train(flush, dev, card):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             step = {k: v - start[k] for k, v in read_counts().items()}
-            check_launches(step, {"roi_align": 3, "roi_align_backward": 3}, 1,
+            check_launches(step, STEP_LAUNCHES, 1,
                            f"train step {i}")
             check_train_metrics(m, f"train step {i}")
             check(float(m["loss_calib"]) == 0.0, "loss_calib is on before step 100")
             losses.append({k: float(m[k]) for k in TRAIN_LOSSES})
         counts = read_counts()
-    check_launches(counts, {"roi_align": 3, "roi_align_backward": 3}, TRAIN_STEPS, "train")
+    check_launches(counts, STEP_LAUNCHES, TRAIN_STEPS, "train")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for n in fixed:
         check(torch.equal(params[n], before[n]), f"parameter {n} moved")
@@ -1031,18 +1269,21 @@ def phase_train(flush, dev, card):
         first_ms=times[0], losses=losses, peak_mem_gib=peak, step=state.step,
         loss_ema=float(state.loss_ema))), flush=True)
 
-    recs, _ = check_train_aligns("train", recorded, cfg, flush)
+    recs, _ = check_train_aligns("train", recorded, cfg, flush, split=True, ab=ab)
+    # the same backwards in float32, the compute dtype of phase 16's step
+    check_train_aligns("train", recorded, cfg, flush, split=True, ab=ab, dtype=torch.float32)
     del recorded, model, opt
     torch.cuda.empty_cache()
     return recs, counts, dict(ms_per_step=ms, peak_mem_gib=peak)
 
 
-def check_train_aligns(what, recorded, cfg, flush):
+def check_train_aligns(what, recorded, cfg, flush, split=False, ab=(), dtype=None):
     """A training step's three recorded aligns: each kernel output against
     the plain version on the same features and RoIs, then the backward
     kernel against the plain autograd on the step's own output gradients
-    (``compare_backward``). Returns (the backward records, the forwards'
-    largest error)."""
+    (``compare_backward``, with ``split`` and ``ab`` as there). Returns
+    (the backward records, the forwards' largest error). With ``dtype``,
+    the backwards alone on the features and output gradients cast to it."""
     check(len(recorded) == 3, f"{what}: {len(recorded)} aligns recorded, expected 3")
     recs, errs = [], []
     labels = ("sampled 7x7", "positives 7x7", "positives 14x14")
@@ -1052,6 +1293,12 @@ def check_train_aligns(what, recorded, cfg, flush):
         strides = ra.align_strides(cfg.neck.lazy_lower, head_cfg.featmap_strides)
         feats = [f.detach().contiguous() for f in feats[:n_lvl]]
         rois = rois.float().contiguous()
+        if dtype is not None:
+            recs.append(compare_backward(
+                f"{what} {label}", [f.to(dtype) for f in feats], rois,
+                grad_out.to(dtype).contiguous(), strides, out_size, head_cfg.finest_scale,
+                head_cfg.align_max_ratio, flush, split=split, ab=ab))
+            continue
         with torch.no_grad():
             plain = ra.multilevel_roi_align(
                 feats, rois, strides, out_size, head_cfg.finest_scale,
@@ -1063,8 +1310,8 @@ def check_train_aligns(what, recorded, cfg, flush):
         check(ok, f"{what}: the step's {label} align disagrees with the plain version")
         recs.append(compare_backward(
             f"{what} {label}", feats, rois, grad_out.contiguous(), strides, out_size,
-            head_cfg.finest_scale, head_cfg.align_max_ratio, flush))
-    return recs, max(errs)
+            head_cfg.finest_scale, head_cfg.align_max_ratio, flush, split=split, ab=ab))
+    return recs, max(errs, default=0.0)
 
 
 def tiny_train_config():
@@ -1109,7 +1356,7 @@ def phase_tiny_train():
         if device == "cuda":
             torch.cuda.synchronize()
             step = {k: v - start[k] for k, v in read_counts().items()}
-            check_launches(step, {"roi_align": 3, "roi_align_backward": 3}, 1,
+            check_launches(step, STEP_LAUNCHES, 1,
                            "tiny train step")
         out[device] = ({k: float(v.detach()) for k, v in dict(losses, total_loss=total).items()},
                        dict(zip(names, grads)), share)
@@ -1667,7 +1914,7 @@ def phase_train_loop(card, flush, bare_ms):
         total_s = time.perf_counter() - t0
 
     n_steps, n_val_batches = 2 * LOOP_EPOCH_STEPS, -(-LOOP_VAL // VAL_BATCH)
-    per_step = {"roi_align": 3, "roi_align_backward": 3}
+    per_step = STEP_LAUNCHES
     check(len(steps) == n_steps, f"train loop: {len(steps)} steps, expected {n_steps}")
     for i, s in enumerate(steps):
         check_launches(s["launches"], per_step, 1, f"train loop step {i + 1}")
@@ -1677,7 +1924,8 @@ def phase_train_loop(card, flush, bare_ms):
         check(bool(v["ap"]) and all(math.isfinite(x) for x in v["ap"].values()),
               "train loop: a validation AP is missing or not finite")
     check_launches(counts, {"roi_align": 3 * (n_steps + 2 * n_val_batches),
-                            "roi_align_backward": 3 * n_steps}, 1, "train loop (both calls)")
+                            "roi_align_backward": per_step["roi_align_backward"] * n_steps},
+                   1, "train loop (both calls)")
 
     log = [json.loads(ln) for ln in (work / "train_log.jsonl").read_text().splitlines()]
     check([(r["step"], r["epoch"]) for r in log]
@@ -1788,34 +2036,15 @@ def dp_config():
     return dataclasses.replace(get_config("kitti_multiclass"), compute_dtype="float32")
 
 
-def dp_draws(cfg, model, batch, seed):
-    """Every random draw of one training step on the global ``batch``, from a
-    generator on the batch's device seeded with ``seed``: every process
-    that calls it with the same model and batch gets the same draws."""
+def dp_draws(cfg, batch, seed):
+    """Every random draw of one training step on the global ``batch``
+    (``utils/draws.py:train_draws``, as ``train_detector`` makes them), from
+    a generator on the batch's device seeded with ``seed``: every process
+    that calls it with the same batch gets the same draws."""
     dev = batch["images"].device
-    gen = torch.Generator(device=dev).manual_seed(seed)
     B, H, W = batch["images"].shape[:3]
-    tr, nh = cfg.train, cfg.noc_head
-    with torch.no_grad():
-        cls, reg = model.rpn_head(model.extract_feats(batch["images"][:1])
-                                  [cfg.rpn.starting_level:])
-        props, _ = get_proposals(cls, reg, cfg.rpn, (H, W), cfg.rpn.train_nms_pre,
-                                 cfg.rpn.nms_post, valid_shapes=batch["img_shapes"][:1])
-    n_anchors = sum(c[0].numel() for c in cls)
-    n_gt, n = batch["gt_boxes"].shape[1], B * tr.max_pos
-
-    def u(*shape):
-        return torch.rand(shape, generator=gen, device=dev)
-
-    pair = (lambda m: (u(B, m), u(B, m)))
-    return TrainDraws(
-        rpn_noise=pair(n_anchors), rcnn_noise=pair(props.shape[1] + n_gt),
-        rcnn_noise_refined=pair(tr.rcnn_num_samples + n_gt) if tr.refined_reassign else None,
-        global_masks=train_dropout_masks(model.roi_head.global_head.cfg, n, dev, gen),
-        noc_mask=u(n, cfg.neck.out_channels) < 1 - nh.dropout2d_rate
-        if nh.dropout2d_rate > 0 else None,
-        ransac_keys=u(n, cfg.pose_head.ransac_hypotheses, nh.dense_size ** 2),
-        score_uniform=u(n))
+    return train_draws(cfg, B, (H, W), batch["gt_boxes"].shape[1],
+                       torch.Generator(device=dev).manual_seed(seed), dev)
 
 
 def keep_step_grads(opt, into):
@@ -1879,7 +2108,7 @@ def dp_rank(rank, port, loop_root):
                  for k, v in synthetic_train_batch(cfg, DP_BATCH, (cfg.data.pad_height,
                                                                    cfg.data.pad_width),
                                                    seed=0).items()}
-        draws = dp_draws(cfg, model, batch, seed=4)
+        draws = dp_draws(cfg, batch, seed=4)
         grads, recorded = {}, []
         keep_step_grads(opt, grads)
         with align_env({}), recording_aligns(recorded, grad=True):
@@ -2058,7 +2287,7 @@ def phase_dp(card, eval_results, loop_stats):
     H, W = cfg.data.pad_height, cfg.data.pad_width
     batch = {k: torch.as_tensor(v, device=dev)
              for k, v in synthetic_train_batch(cfg, DP_BATCH, (H, W), seed=0).items()}
-    draws = dp_draws(cfg, model, batch, seed=4)
+    draws = dp_draws(cfg, batch, seed=4)
     ref_grads = {}
     keep_step_grads(opt, ref_grads)
     with align_env({}):
@@ -2085,7 +2314,7 @@ def phase_dp(card, eval_results, loop_stats):
     ranks_s = time.perf_counter() - t0
     ranks = [json.loads((DP_DIR / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
     grads = torch.load(DP_DIR / "grads.pt")
-    per_step = {"roi_align": 3, "roi_align_backward": 3}
+    per_step = STEP_LAUNCHES
     for r in ranks:
         check(r["world"] == DP_WORLD, f"rank {r['rank']} saw world size {r['world']}")
         check_launches(r["launches"], per_step, 1, f"data-parallel step, rank {r['rank']}")
@@ -2148,7 +2377,8 @@ def phase_dp(card, eval_results, loop_stats):
     nc = json.loads((DP_DIR / "nccl.json").read_text())
     n_val = -(-LOOP_VAL // VAL_BATCH)
     check_launches(nc["train_launches"], {"roi_align": 3 * (2 + n_val),
-                                          "roi_align_backward": 3 * 2}, 1,
+                                          "roi_align_backward":
+                                              STEP_LAUNCHES["roi_align_backward"] * 2}, 1,
                    "tools.train --distributed (NCCL, 2 steps and a validation)")
     check(nc["train_log_steps"] == [1, 2] and nc["train_log_finite"],
           f"tools.train --distributed: the log's steps {nc['train_log_steps']}")
@@ -2228,16 +2458,17 @@ def main() -> int:
                     help="also time SOURCE, another build of kernel NAME's C interface "
                          "(a name of the kernels line; default roi_align, the direct "
                          "kernel), in turns with this one: phases 3-4 for the direct "
-                         "kernel, phase 6 for a staged one (repeatable)")
+                         "kernel, phase 6 for a staged one, phases 9-10 for "
+                         "roi_align_backward (a source of its interface, or of "
+                         "the earlier float32-scratch one: ScratchBackward) (repeatable)")
     args = ap.parse_args()
     by_name = {name: k for k, name in KERNEL_NAMES.items()}
     ab_specs = []
     for spec in args.ab:
         name, _, src = spec.rpartition("=")
         name = name or "roi_align"
-        if name not in by_name or name == "roi_align_backward":
-            ap.error(f"--ab {spec}: {name!r} is not a forward kernel of "
-                     f"{sorted(set(by_name) - {'roi_align_backward'})}")
+        if name not in by_name:
+            ap.error(f"--ab {spec}: {name!r} is not a kernel of {sorted(by_name)}")
         ab_specs.append((by_name[name], Path(src)))
     if not torch.cuda.is_available():
         print("FAIL no CUDA device is available", file=sys.stderr)
@@ -2264,17 +2495,21 @@ def main() -> int:
             check(all(a["local_bytes"] == 0 for a in attr.values()),
                   f"{KERNEL_NAMES[k]} uses local memory (spills or stack): {attr}")
         reductions = backward_reductions()
-        print("build roi_align_backward global atomics in the SASS " + json.dumps(reductions),
+        print("build roi_align_backward atomics in the SASS " + json.dumps(reductions),
               flush=True)
-        check(bool(reductions) and all("F32x4" in op for op in reductions),
-              f"the backward's level gradient is not one vector reduction per 4 channels: "
-              f"{reductions}")
+        check(not reductions, f"the backward has atomics, so its sums' order can change "
+                              f"from run to run: {reductions}")
         ab = [rc.RoIAlignKernel(source=src) for k, src in ab_specs if k is roi_align_kernel]
+        # a source of the current interface, or of the earlier float32 scratch
+        ab_backward = [rc.RoIAlignBackwardKernel(source=src)
+                       if "roi_align_backward_levels" in src.read_text()
+                       else ScratchBackward(src)
+                       for k, src in ab_specs if k is rc.roi_align_backward_kernel]
         ab_staged = {}
         for k, src in ab_specs:
-            if k is not roi_align_kernel:
+            if k not in (roi_align_kernel, rc.roi_align_backward_kernel):
                 ab_staged.setdefault(k, []).append(k.with_source(src))
-        for other in ab + [o for v in ab_staged.values() for o in v]:
+        for other in ab + ab_backward + [o for v in ab_staged.values() for o in v]:
             other.build()
             for line in other.build_log.splitlines():
                 if "registers" in line or "spill" in line:
@@ -2295,8 +2530,8 @@ def main() -> int:
         del sess, requests
         torch.cuda.empty_cache()
         with align_env({}):
-            backward = phase_backward(cfg, flush, dev)
-        train_recs, train_counts, train_stats = phase_train(flush, dev, card)
+            backward = phase_backward(cfg, flush, dev, ab_backward)
+        train_recs, train_counts, train_stats = phase_train(flush, dev, card, ab_backward)
         with align_env({}):
             phase_tiny_train()
         torch.cuda.empty_cache()

@@ -36,6 +36,7 @@ from ..models.detector import MonoRUn
 from ..parallel import barrier, rank, replicate, shard_batch, world_size
 from ..train import TrainState, create_train_state, train_step
 from ..utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from ..utils.draws import train_draws
 from .inference import InferenceSession, load_weights, resolve_device, upload
 from .test import run_eval
 
@@ -118,7 +119,10 @@ def train_detector(
     resumed. A checkpoint is written every ``train.checkpoint_interval``
     epochs and at the end; ``val_ds`` is evaluated every
     ``train.eval_interval`` epochs. In a process group each rank passes its
-    own device; the draws of rank r come from ``seed + 1 + r``."""
+    own device. Each step's random draws are the global batch's, from one
+    generator seeded ``seed + 1`` on every rank (JAX's ``PRNGKey(seed +
+    1)``), and rank r takes its rows of them: a run trains on the same
+    random numbers at every world size."""
     device = resolve_device(device)
     tr = cfg.train
     ds = KITTI3DDataset(cfg.data.train_root, cfg.data.train_list, classes=cfg.data.classes,
@@ -144,17 +148,20 @@ def train_detector(
     step = state.step
     logger = MetricLogger(workdir, tr.log_interval, tensorboard=tr.tensorboard) if lead \
         else None
-    generator = torch.Generator(device=device).manual_seed(tr.seed + 1 + me)
+    generator = torch.Generator(device=device).manual_seed(tr.seed + 1)
 
     epoch = step // max(steps_per_epoch, 1)
     while step < total_steps:
         for batch in loader:
             batch.pop("_indices")
+            draws = train_draws(cfg, len(batch["images"]), batch["images"].shape[1:3],
+                                batch["gt_boxes"].shape[1], generator, device)
             batch = {k: upload(v, device) for k, v in shard_batch(batch, me, world).items()}
             # train_step runs the step at apply_loss_schedule(cfg, state.step),
             # the config JAX's loop re-specialises its step to at each boundary
             state, metrics = train_step(
-                model, optimizer, state, batch, generator=generator,
+                model, optimizer, state, batch, shard_batch(draws, me, world),
+                generator=generator,
                 with_grad_stats=tr.log_grad_stats,
                 with_param_stats=tr.save_stats_interval > 0)
             step += 1

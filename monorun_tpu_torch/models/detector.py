@@ -17,8 +17,9 @@ noc,score,pose}_head.*``), so a reference checkpoint loads with
 ``load_state_dict``.
 
 Randomness (the MC-dropout masks and the RANSAC keys) can be passed in as
-``HeadDraws``, and the training step's as ``TrainDraws``; what is not
-passed is drawn from the caller's generator.
+``HeadDraws``, and what is not passed is drawn from the caller's
+generator; the training step's comes as ``TrainDraws``, all of it, or
+from the generator through ``utils/draws.py:train_draws``.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from ..targets.assigner import AssignCfg, assign_max_iou
 from ..targets.dense_target import encode_noc_points, sparse_noc_targets
 from ..targets.rpn_targets import rpn_loss
 from ..targets.sampler import SampleResult, sample_rois
-from ..utils.draws import uniform
+from ..utils.draws import TrainDraws, train_draws
 from .bbox_head import BBoxHead, get_det_bboxes
 from .fpn import FPNplus
 from .global_head import GlobalHead, slice_pred
@@ -80,21 +81,6 @@ class HeadDraws(NamedTuple):
 
     mc_masks: Optional[Tuple[Tensor, Tensor, Tensor]] = None  # global head
     ransac_keys: Optional[Tensor] = None                      # (B*K, H, n)
-
-
-class TrainDraws(NamedTuple):
-    """Random inputs of ``train_forward``; None entries are drawn from the
-    generator, on its own device (``utils/draws.py``), so one seeded CPU
-    generator gives a CPU and a GPU step the same draws. n = B *
-    train.max_pos positive slots."""
-
-    rpn_noise: Optional[Tuple[Tensor, Tensor]] = None    # (B, anchors) uniforms, pos / neg
-    rcnn_noise: Optional[Tuple[Tensor, Tensor]] = None   # (B, candidates) uniforms, pos / neg
-    rcnn_noise_refined: Optional[Tuple[Tensor, Tensor]] = None  # refined_reassign's re-sample
-    global_masks: Optional[Tuple[Tensor, Tensor, Tensor]] = None  # keep (n, C), (n, F), (n, F)
-    noc_mask: Optional[Tensor] = None                    # keep (n, C), the NOC dropout2d
-    ransac_keys: Optional[Tensor] = None                 # (n, hypotheses, points) uniforms
-    score_uniform: Optional[Tensor] = None               # (n,) score-sampling uniforms
 
 
 def compute_dtype(cfg: MonoRUnConfig) -> torch.dtype:
@@ -403,6 +389,8 @@ class MonoRUn(nn.Module):
         RoI grid and the aligns' RoI gradient), and the refinement deltas,
         the PnP inputs and outputs, the IoUs and the calibration error carry
         none. ``cfg`` overrides the model's config (the loss schedule).
+        ``draws`` holds every random input, or none: then they are
+        ``utils/draws.py:train_draws``' from ``generator``.
 
         Under data parallelism the batch is this rank's rows of the global
         batch, and every reduction across samples is the global batch's
@@ -429,15 +417,13 @@ class MonoRUn(nn.Module):
         K = cfg.bbox_head.num_classes
         gt_boxes = batch["gt_boxes"]
 
-        def uniforms(shape):
-            return uniform(shape, generator, dev)
+        if all(d is None for d in draws):
+            draws = train_draws(cfg, B, pad_shape, gt_boxes.shape[1], generator, dev)
 
         feats = self.extract_feats(images)
         cls_scores, bbox_preds = self.rpn_head(feats[cfg.rpn.starting_level:])
-        n_anchors = sum(s[0].numel() for s in cls_scores)
-        rpn_noise = draws.rpn_noise or (uniforms((B, n_anchors)), uniforms((B, n_anchors)))
         losses = rpn_loss(
-            rpn_noise, cls_scores, bbox_preds, gt_boxes, batch["gt_valid"],
+            draws.rpn_noise, cls_scores, bbox_preds, gt_boxes, batch["gt_valid"],
             batch["ignore_boxes"], batch["ignore_valid"], cfg.rpn, tr,
         )
         proposals, prop_valid = get_proposals(
@@ -448,10 +434,7 @@ class MonoRUn(nn.Module):
         # ---- assign + sample, the GTs added as proposals ----------------------
         cand_boxes = torch.cat([proposals, gt_boxes], 1)
         cand_valid = torch.cat([prop_valid, batch["gt_valid"]], 1)
-        n_cand = cand_boxes.shape[1]
-        samp = self._sample(cfg, draws.rcnn_noise or (uniforms((B, n_cand)),
-                                                      uniforms((B, n_cand))),
-                            cand_boxes, cand_valid, batch)
+        samp = self._sample(cfg, draws.rcnn_noise, cand_boxes, cand_valid, batch)
         P = tr.max_pos
         Ns = tr.rcnn_num_samples
         all_boxes = torch.cat([samp.pos_boxes, samp.neg_boxes], 1)
@@ -498,10 +481,7 @@ class MonoRUn(nn.Module):
             refined_valid = torch.cat([samp.pos_valid & ~pos_is_gt, samp.neg_valid], 1)
             cand2 = torch.cat([refined_all, gt_boxes], 1)
             cand2_valid = torch.cat([refined_valid, batch["gt_valid"]], 1)
-            n2 = cand2.shape[1]
-            samp = self._sample(cfg, draws.rcnn_noise_refined or (uniforms((B, n2)),
-                                                                  uniforms((B, n2))),
-                                cand2, cand2_valid, batch)
+            samp = self._sample(cfg, draws.rcnn_noise_refined, cand2, cand2_valid, batch)
             pos_boxes = samp.pos_boxes
         else:
             # positive-RoI refinement by the assigned class, without gradient
@@ -520,7 +500,7 @@ class MonoRUn(nn.Module):
                                  samp.pos_gt_inds[..., None].expand(-1, -1, 7)).reshape(-1, 7)
 
         reg_feats = self._align(feats, pos_rois, cfg.bbox_head, (rs, rs), 24, None)
-        gout = heads.global_head.forward_train(reg_feats, draws.global_masks, generator)
+        gout = heads.global_head.forward_train(reg_feats, draws.global_masks)
         dim_enc, _, latent, _ = slice_pred(cfg.global_head, gout.dim_latent_pred, None,
                                            flat_pos_labels)
         dim_coder = DimCoder(cfg.global_head.dim_means, cfg.global_head.dim_stds)
@@ -533,10 +513,7 @@ class MonoRUn(nn.Module):
         nh = cfg.noc_head
         noc_feats = self._align(feats, pos_rois, nh, (nh.roi_size, nh.roi_size), 32, None)
         flip_pos = batch["flip"].repeat_interleave(P)
-        noc_keep = draws.noc_mask
-        if noc_keep is None and nh.dropout2d_rate > 0:
-            noc_keep = uniforms((npos, noc_feats.shape[-1])) < 1.0 - nh.dropout2d_rate
-        nout = heads.noc_head(noc_feats, latent, flat_pos_labels, flip_pos, noc_keep)
+        nout = heads.noc_head(noc_feats, latent, flat_pos_labels, flip_pos, draws.noc_mask)
         noc_pred, proj_logstd_enc = nout.noc_pred, nout.proj_logstd
         dsz = nh.dense_size
         if nh.with_lidar_loss:
@@ -615,7 +592,6 @@ class MonoRUn(nn.Module):
                 ransac_hypotheses=pose.ransac_hypotheses, lm_iters=pose.lm_iters,
                 exact_hessian=pose.forward_exact_hessian,
             ),
-            generator=generator,
         )
         # a covariance that is not finite is replaced before the calibration,
         # whose gradient carries the covariance's value
@@ -654,10 +630,7 @@ class MonoRUn(nn.Module):
         logits = heads.score_head(gout.reg_fc_out.to(self.dtype), pnp.yaw, pnp.t_vec,
                                   score_cov, dims, train=True, valid=pose_ok)
         targets = score_targets(cfg.score_head, ious)
-        score_uniform = draws.score_uniform
-        if score_uniform is None:
-            score_uniform = uniforms(ious.shape)
-        samp_w = iou3d_balanced_sample_weights(cfg.score_head, ious, score_uniform,
+        samp_w = iou3d_balanced_sample_weights(cfg.score_head, ious, draws.score_uniform,
                                                valid=pose_ok)
         samp_w = samp_w / clip(global_mean(samp_w), 1e-2)
         losses["loss_score"] = sigmoid_bce_loss(

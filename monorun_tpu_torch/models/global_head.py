@@ -111,16 +111,13 @@ class GlobalHead(nn.Module):
     def forward_train(
         self,
         roi_feats: Tensor,                                  # (n, 7, 7, C)
-        masks: Optional[Tuple[Tensor, Tensor, Tensor]] = None,
-        generator: Optional[torch.Generator] = None,
+        masks: Tuple[Tensor, Tensor, Tensor],
     ) -> GlobalHeadOutput:
         """One dropout sample (``monorun_tpu`` ``GlobalHead(train=True)``):
         the prediction and the last FC's activations, no variance."""
         c = self.cfg
         n, fh, fw, ch = roi_feats.shape
         dt = roi_feats.dtype
-        if masks is None:
-            masks = train_dropout_masks(c, n, roi_feats.device, generator)
         m2d, m0, m1 = (m.to(dt) for m in masks)
         keep2d = 1.0 - c.dropout2d_rate
         keep = 1.0 - c.dropout_rate

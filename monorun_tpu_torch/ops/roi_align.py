@@ -334,6 +334,56 @@ def merged_bin_taps(
     return BinTaps(base, w_arr[lvls], rows, row_w * avg[:, None, None], cols, col_w)
 
 
+class BackwardIndexPlain(NamedTuple):
+    """``backward_index``'s result: as ``roi_align_cuda.BackwardIndex``
+    without the tap lists (they are ``merged_bin_taps``)."""
+
+    keys: Tensor      # (m,) image * levels + level
+    rects: Tensor     # (m, 4) rows [r0, r1), columns [c0, c1) on its level
+    order: Tensor     # (m,) the RoIs by key, in RoI order within a key
+    offsets: Tensor   # (batch * levels + 1,) each key's first place in order
+
+
+def backward_index(
+    sizes: Sequence[Tuple[int, int]],   # per level (H_l, W_l)
+    rois: Tensor,                       # (m, 5) float32
+    strides: Sequence[int],
+    out_size: Tuple[int, int],
+    finest_scale: float,
+    max_ratio: int,
+    long_span_cap: float | None,
+    batch: int,
+) -> BackwardIndexPlain:
+    """The index pass of ``csrc/roi_align_bwd.cu`` in plain PyTorch (the
+    statement of its rule, for tests): each RoI's key (its image, clamped
+    into the batch, times the level count, plus its level), the rectangle
+    of cells that its merged taps (``merged_bin_taps``, nonzero weights
+    only) reach on its level, (0, 0, 0, 0) when they reach none, and the
+    RoIs bucketed by key, a stable counting sort."""
+    L, m, dev = len(sizes), rois.shape[0], rois.device
+    n_keys = batch * L
+    if m == 0:
+        empty = torch.zeros((0,), dtype=torch.long, device=dev)
+        return BackwardIndexPlain(empty, empty.reshape(0, 4), empty,
+                                  torch.zeros((n_keys + 1,), dtype=torch.long, device=dev))
+    lvls = assign_fpn_levels(rois, L, finest_scale, long_span_cap, float(strides[0]))
+    keys = rois[:, 0].long().clamp(0, batch - 1) * L + lvls
+    t = merged_bin_taps(sizes, rois, strides, out_size, finest_scale, max_ratio, long_span_cap)
+
+    def span(taps, w):
+        live = w != 0
+        lo = torch.where(live, taps, torch.iinfo(torch.long).max).flatten(1).amin(1)
+        hi = torch.where(live, taps, -1).flatten(1).amax(1) + 1
+        return lo, hi
+
+    (r0, r1), (c0, c1) = span(t.rows, t.row_w), span(t.cols, t.col_w)
+    rects = torch.stack([r0, r1, c0, c1], 1)
+    rects = torch.where(((r1 > 0) & (c1 > 0))[:, None], rects, 0)
+    order = torch.sort(keys, stable=True).indices
+    offsets = torch.cat([keys.new_zeros(1), torch.bincount(keys, minlength=n_keys).cumsum(0)])
+    return BackwardIndexPlain(keys, rects, order, offsets)
+
+
 def axis_interp_matrix(
     coords: Tensor,       # (n, o, k) sample positions along one axis
     kmask: Tensor,        # (n, 1, k) which of the k sub-samples exist

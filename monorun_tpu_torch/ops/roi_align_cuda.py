@@ -16,8 +16,10 @@ Kernels, each with a ``launches`` count (one per call that launches it):
   the band and sorted TPU kernels (``RoIAlignKernel(source=...)`` binds
   another build of the same C interface, for an A/B on the card);
 * ``roi_align_backward_kernel`` (``csrc/roi_align_bwd.cu``): its gradient
-  with respect to the levels and the RoIs; ``roi_align_direct`` is the two
-  as a ``torch.autograd.Function``, the one differentiable kernel route;
+  with respect to the levels and the RoIs (a per-RoI kernel, a bucket sort
+  and a tile kernel that writes each level cell once; no atomics, so a
+  call is bitwise repeatable); ``roi_align_direct`` is the two as a
+  ``torch.autograd.Function``, the one differentiable kernel route;
 * ``tile_kernel`` (``csrc/roi_align_tile.cu``): per-RoI tier tiles;
 * ``band_tiered_kernel`` (``csrc/roi_align_band.cu``): tier-uniform band
   blocks;
@@ -42,7 +44,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -314,13 +316,36 @@ class RoIAlignKernel:
 roi_align_kernel = RoIAlignKernel()
 
 
+class BackwardIndex(NamedTuple):
+    """The backward's index pass on one call (``RoIAlignBackwardKernel.index``):
+    what the per-RoI kernel hands the tile kernel, and the bucket sort."""
+
+    lists: Tensor     # (n, oh + ow, 2 max_ratio, 2) int32: tap, weight's bits (tap -1: unused)
+    rects: Tensor     # (n, 4) int32: rows [r0, r1), columns [r2, r3) its taps reach
+    keys: Tensor      # (n,) int32: image * levels + level
+    order: Tensor     # (n,) int32: the RoIs by key, in RoI order within a key
+    offsets: Tensor   # (B * levels + 1,) int32: each key's first place in order
+
+
 class RoIAlignBackwardKernel:
     """Callable wrapper around the direct kernel's backward
     (``csrc/roi_align_bwd.cu``), with a launch count: the gradients of
-    ``RoIAlignKernel``'s function with respect to the levels and the RoIs."""
+    ``RoIAlignKernel``'s function with respect to the levels and the RoIs.
 
-    def __init__(self):
+    A call launches up to three kernels, each counted: the per-RoI kernel
+    (the RoI gradient, and the tap lists, key and rectangle of each RoI
+    when the levels' gradient is asked for), then for the levels' gradient
+    the bucket sort (without the RoIs whose output gradient is zero: they
+    add exact zeros) and the tile kernel, which writes every cell of the
+    per-level outputs (``torch.empty``, the levels' dtype) once. So 3
+    launches when both gradients are asked for, 3 for the levels alone, 1
+    for the RoIs alone, 0 for no RoIs. ``source`` builds another file of
+    the same C interface instead (an earlier version of
+    ``csrc/roi_align_bwd.cu``, for an A/B)."""
+
+    def __init__(self, source: Optional[Path] = None):
         self.launches = 0
+        self.source = source
         self.build_log = ""
         self._lib = None
 
@@ -328,24 +353,29 @@ class RoIAlignBackwardKernel:
         """Build every kernel (unless built) and bind this one."""
         if self._lib is not None:
             return self._lib
-        lib = build_all()["roi_align_bwd"]
-        self.build_log = build_all.log
-        lib.roi_align_backward.argtypes = [
-            ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_longlong),
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        if self.source is None:
+            lib = build_all()["roi_align_bwd"]
+            self.build_log = build_all.log
+        else:
+            lib, self.build_log = build_source(self.source)
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.roi_align_backward_rois.argtypes = [
+            I, I, ctypes.POINTER(P), ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(F),
+            P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P,
         ]
-        lib.roi_align_backward.restype = ctypes.c_int
-        lib.roi_align_backward_shape.argtypes = [ctypes.c_int] * 3 + [
-            ctypes.POINTER(ctypes.c_int)] * 2
-        lib.roi_align_backward_shape.restype = ctypes.c_int
-        lib.roi_align_backward_attributes.argtypes = [
-            ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-        lib.roi_align_backward_attributes.restype = ctypes.c_int
-        lib.roi_align_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.roi_align_backward_buckets.argtypes = [P, P, I, I, I, P, P, P]
+        lib.roi_align_backward_levels.argtypes = [
+            I, I, ctypes.POINTER(P), ctypes.POINTER(ctypes.c_longlong),
+            P, P, P, P, P, I, I, I, I, I, P,
+        ]
+        lib.roi_align_backward_shape.argtypes = [I] * 3 + [ctypes.POINTER(I)] * 2
+        lib.roi_align_backward_tile.argtypes = [I] + [ctypes.POINTER(I)] * 3
+        lib.roi_align_backward_attributes.argtypes = [I, I] + [ctypes.POINTER(I)] * 2
+        for fn in ("roi_align_backward_rois", "roi_align_backward_buckets",
+                   "roi_align_backward_levels", "roi_align_backward_shape",
+                   "roi_align_backward_tile", "roi_align_backward_attributes"):
+            getattr(lib, fn).restype = I
+        lib.roi_align_bwd_error_string.argtypes = [I]
         lib.roi_align_bwd_error_string.restype = ctypes.c_char_p
         self._lib = lib
         return lib
@@ -356,25 +386,135 @@ class RoIAlignBackwardKernel:
                                + self._lib.roi_align_bwd_error_string(rc).decode())
 
     def attributes(self) -> Dict[str, Dict[str, int]]:
-        """Registers and local memory bytes per thread of the backward kernel
-        in each dtype, from the loaded build."""
+        """Registers and local memory bytes per thread of each backward
+        kernel (the per-RoI kernel, the bucket sort, the tile kernel) in
+        each dtype, from the loaded build."""
         lib = self.build()
         usage = {}
-        for name, is_bf16 in (("bfloat16", 1), ("float32", 0)):
-            regs, local = ctypes.c_int(), ctypes.c_int()
-            self._check(lib.roi_align_backward_attributes(
-                is_bf16, ctypes.byref(regs), ctypes.byref(local)), "attributes query")
-            usage[name] = dict(registers=regs.value, local_bytes=local.value)
+        for kernel, name in ((0, "rois"), (1, "buckets"), (2, "levels")):
+            for dtype, is_bf16 in (("bfloat16", 1), ("float32", 0)):
+                if kernel == 1 and not is_bf16:
+                    continue
+                regs, local = ctypes.c_int(), ctypes.c_int()
+                self._check(lib.roi_align_backward_attributes(
+                    kernel, is_bf16, ctypes.byref(regs), ctypes.byref(local)),
+                    "attributes query")
+                usage[name if kernel == 1 else f"{name} {dtype}"] = dict(
+                    registers=regs.value, local_bytes=local.value)
         return usage
 
     def launch_shape(self, n: int, out_size: Tuple[int, int]) -> Dict[str, int]:
-        """Warps per block and blocks per RoI (along blockIdx.y) of a call."""
+        """Warps per block and blocks per RoI (along blockIdx.y) of the
+        per-RoI kernel on a call."""
         lib = self.build()
         warps, split = ctypes.c_int(), ctypes.c_int()
         self._check(lib.roi_align_backward_shape(n, out_size[0], out_size[1],
                                                  ctypes.byref(warps), ctypes.byref(split)),
                     "shape query")
         return dict(warps=warps.value, split=split.value)
+
+    def tile(self, dtype: torch.dtype) -> Dict[str, int]:
+        """The tile kernel's tile in ``dtype``: rows, cells per row, and
+        channels per block."""
+        lib = self.build()
+        rows, cols, chans = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        self._check(lib.roi_align_backward_tile(int(dtype == torch.bfloat16), ctypes.byref(rows),
+                                                ctypes.byref(cols), ctypes.byref(chans)),
+                    "tile query")
+        return dict(rows=rows.value, cols=cols.value, channels=chans.value)
+
+    def _check_call(self, features, rois, grad_out, strides, out_size, max_ratio):
+        f0 = features[0]
+        ptrs, dims = _level_args(features, strides, max_ratio)
+        n = rois.shape[0]
+        if (rois.dim() != 2 or rois.shape[1] != 5 or rois.dtype != torch.float32
+                or not rois.is_contiguous() or rois.device != f0.device):
+            raise ValueError("rois must be a contiguous (n, 5) float32 tensor "
+                             "on the features' device")
+        shape = (n, *out_size, f0.shape[-1])
+        if grad_out is not None and (
+                tuple(grad_out.shape) != shape or grad_out.dtype != f0.dtype
+                or not grad_out.is_contiguous() or grad_out.device != f0.device
+                or grad_out.data_ptr() % 16):
+            raise ValueError("grad_out must be a contiguous, 16-byte aligned "
+                             f"{shape} tensor in the levels' dtype and device")
+        return ptrs, dims
+
+    def _rois(self, features, rois, grad_out, strides, out_size, finest_scale, max_ratio,
+              long_span_cap, ptrs, dims, partial, index, live=None):
+        """One launch of the per-RoI kernel: ``partial`` (split, n, 4) the
+        RoI gradient's block sums, ``index`` (lists, rects, keys) its
+        outputs for the tile kernel, ``live`` (split, n) whether each
+        block's bins have a nonzero output gradient (given ``grad_out``);
+        any may be None."""
+        lib = self.build()
+        f0 = features[0]
+        levels = len(features)
+        inv_strides = (ctypes.c_float * levels)(*[1.0 / s for s in strides])
+        lists, rects, keys = index if index is not None else (None, None, None)
+
+        def ptr(t):
+            return t.data_ptr() if t is not None else None
+
+        with torch.cuda.device(f0.device):
+            rc = lib.roi_align_backward_rois(
+                int(f0.dtype == torch.bfloat16), levels,
+                (ctypes.c_void_p * levels)(*ptrs), (ctypes.c_longlong * len(dims))(*dims),
+                inv_strides, rois.data_ptr(), ptr(grad_out), ptr(partial), ptr(live), ptr(lists),
+                ptr(rects), ptr(keys), rois.shape[0], f0.shape[0], f0.shape[-1],
+                out_size[0], out_size[1], int(max_ratio), float(finest_scale),
+                float(long_span_cap * strides[0]) if long_span_cap else 0.0,
+                _stream(f0.device))
+        self._check(rc, "RoIAlign backward per-RoI kernel launch")
+        self.launches += 1
+
+    def _index(self, features, rois, strides, out_size, finest_scale, max_ratio,
+               long_span_cap, ptrs, dims, grad_out=None, partial=None) -> BackwardIndex:
+        """The per-RoI kernel with its index outputs (and the RoI
+        gradient's sums when ``partial`` is given), then the bucket sort.
+        Given ``grad_out``, the RoIs whose output gradient is zero, which
+        add exact zeros, stay out of the buckets."""
+        f0 = features[0]
+        n, dev = rois.shape[0], f0.device
+        n_keys = f0.shape[0] * len(features)
+        lists = torch.empty((n, sum(out_size), 2 * max_ratio, 2), dtype=torch.int32,
+                            device=dev)
+        rects = torch.empty((n, 4), dtype=torch.int32, device=dev)
+        keys = torch.empty((n,), dtype=torch.int32, device=dev)
+        live = None
+        if grad_out is not None:
+            live = torch.empty((partial.shape[0] if partial is not None else 1, n),
+                               dtype=torch.int32, device=dev)
+        self._rois(features, rois, grad_out, strides, out_size, finest_scale, max_ratio,
+                   long_span_cap, ptrs, dims, partial, (lists, rects, keys), live)
+        order = torch.empty((n,), dtype=torch.int32, device=dev)
+        offsets = torch.empty((n_keys + 1,), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = self._lib.roi_align_backward_buckets(
+                keys.data_ptr(), live.data_ptr() if live is not None else None,
+                live.shape[0] if live is not None else 1, n, n_keys, order.data_ptr(),
+                offsets.data_ptr(), _stream(dev))
+        self._check(rc, "RoIAlign backward bucket sort launch")
+        self.launches += 1
+        return BackwardIndex(lists, rects, keys, order, offsets)
+
+    def index(
+        self,
+        features: Sequence[Tensor],
+        rois: Tensor,
+        strides: Sequence[int],
+        out_size: Tuple[int, int],
+        finest_scale: float,
+        max_ratio: int,
+        long_span_cap: Optional[float],
+    ) -> BackwardIndex:
+        """The index pass alone (two launches; the plain statement of its
+        rule is ``roi_align.backward_index``)."""
+        ptrs, dims = self._check_call(features, rois, None, strides, out_size, max_ratio)
+        if rois.shape[0] == 0:
+            raise ValueError("the index pass needs at least one RoI")
+        return self._index(features, rois, strides, out_size, finest_scale, max_ratio,
+                           long_span_cap, ptrs, dims)
 
     def __call__(
         self,
@@ -391,55 +531,38 @@ class RoIAlignBackwardKernel:
     ) -> Tuple[Optional[list], Optional[Tensor]]:
         """(d levels in the levels' dtype, d rois (n, 5) float32 with a zero
         batch column); either is None when not asked for."""
-        levels = len(features)
         f0 = features[0]
-        ptrs, dims = _level_args(features, strides, max_ratio)
-        B, C = f0.shape[0], f0.shape[-1]
-        oh, ow = out_size
-        n = rois.shape[0]
-        if (rois.dim() != 2 or rois.shape[1] != 5 or rois.dtype != torch.float32
-                or not rois.is_contiguous() or rois.device != f0.device):
-            raise ValueError("rois must be a contiguous (n, 5) float32 tensor "
-                             "on the features' device")
-        if (tuple(grad_out.shape) != (n, oh, ow, C) or grad_out.dtype != f0.dtype
-                or not grad_out.is_contiguous() or grad_out.device != f0.device
-                or grad_out.data_ptr() % 16):
-            raise ValueError("grad_out must be a contiguous, 16-byte aligned "
-                             f"{(n, oh, ow, C)} tensor in the levels' dtype and device")
-        sizes = [f.shape[1] * f.shape[2] * B * C for f in features]
-        offsets = [sum(sizes[:i]) for i in range(levels)]
-        scratch = (torch.zeros(sum(sizes), dtype=torch.float32, device=f0.device)
-                   if need_features else None)
-        d_rois = None
-        if n > 0:
-            lib = self.build()
-            split = self.launch_shape(n, out_size)["split"] if need_rois else 1
-            partial = (torch.empty((split, n, 4), dtype=torch.float32, device=f0.device)
-                       if need_rois else None)
-            inv_strides = (ctypes.c_float * levels)(*[1.0 / s for s in strides])
-            with torch.cuda.device(f0.device):
-                rc = lib.roi_align_backward(
-                    int(f0.dtype == torch.bfloat16), levels,
-                    (ctypes.c_void_p * levels)(*ptrs),
-                    (ctypes.c_longlong * len(dims))(*dims), inv_strides,
-                    (ctypes.c_longlong * levels)(*offsets),
-                    rois.data_ptr(), grad_out.data_ptr(),
-                    scratch.data_ptr() if scratch is not None else None,
-                    partial.data_ptr() if partial is not None else None,
-                    n, B, C, oh, ow, int(max_ratio), float(finest_scale),
-                    float(long_span_cap * strides[0]) if long_span_cap else 0.0,
-                    _stream(f0.device),
-                )
-            self._check(rc, "RoIAlign backward kernel launch")
-            self.launches += 1
-            if need_rois:
-                d_rois = torch.cat([partial.new_zeros(n, 1), partial.sum(0)], 1)
-        elif need_rois:
-            d_rois = torch.zeros((0, 5), dtype=torch.float32, device=f0.device)
+        ptrs, dims = self._check_call(features, rois, grad_out, strides, out_size, max_ratio)
+        n, dev = rois.shape[0], f0.device
+        if n == 0:
+            return ([torch.zeros(f.shape, dtype=f.dtype, device=dev) for f in features]
+                    if need_features else None,
+                    torch.zeros((0, 5), dtype=torch.float32, device=dev) if need_rois else None)
+        partial = None
+        if need_rois:
+            split = self.launch_shape(n, out_size)["split"]
+            partial = torch.empty((split, n, 4), dtype=torch.float32, device=dev)
         d_levels = None
         if need_features:
-            d_levels = [scratch[o:o + sz].view(f.shape).to(f.dtype)
-                        for f, o, sz in zip(features, offsets, sizes)]
+            ix = self._index(features, rois, strides, out_size, finest_scale, max_ratio,
+                             long_span_cap, ptrs, dims, grad_out, partial)
+            d_levels = [torch.empty(f.shape, dtype=f.dtype, device=dev) for f in features]
+            hw = [v for f in features for v in (f.shape[1], f.shape[2])]
+            with torch.cuda.device(dev):
+                rc = self._lib.roi_align_backward_levels(
+                    int(f0.dtype == torch.bfloat16), len(features),
+                    (ctypes.c_void_p * len(features))(*[d.data_ptr() for d in d_levels]),
+                    (ctypes.c_longlong * len(hw))(*hw), grad_out.data_ptr(),
+                    ix.lists.data_ptr(), ix.rects.data_ptr(), ix.order.data_ptr(),
+                    ix.offsets.data_ptr(), f0.shape[0], f0.shape[-1], out_size[0],
+                    out_size[1], int(max_ratio), _stream(dev))
+            self._check(rc, "RoIAlign backward tile kernel launch")
+            self.launches += 1
+        else:
+            self._rois(features, rois, grad_out, strides, out_size, finest_scale, max_ratio,
+                       long_span_cap, ptrs, dims, partial, None)
+        d_rois = (torch.cat([partial.new_zeros(n, 1), partial.sum(0)], 1)
+                  if need_rois else None)
         return d_levels, d_rois
 
 

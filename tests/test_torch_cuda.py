@@ -19,8 +19,10 @@ plain version's autograd in float32 on the same (upcast) inputs and output
 gradient: the level gradients to 1e-5 relative in float32 and one
 bfloat16 rounding (2^-7) in bfloat16, the RoI gradients (float32 in both)
 to 1e-4 relative; with an absolute floor of 1e-5 (levels) and 1e-4
-(RoIs) of the gradient's largest entry: the summation order of float32
-atomics and of channel sums over hundreds of taps.
+(RoIs) of the gradient's largest entry: the kernels sum the taps of a
+cell, and the channels of a RoI's hundreds of taps, in another (fixed)
+order than autograd. The backward has no atomics, so two calls agree bit
+for bit; its index pass is held to ``roi_align.backward_index``.
 """
 
 import numpy as np
@@ -589,6 +591,9 @@ def test_tile_kernel_matches_plain_on_edges(cuda_device, dtype, case):
 # ---- the direct kernel's backward -------------------------------------------
 
 STRIDES5 = (4, 4, 8, 16, 32)
+# a backward call with both gradients: the per-RoI kernel, the bucket sort
+# and the tile kernel
+BACKWARD_LAUNCHES = 3
 
 
 def _pyramid5(device, dtype, B=2, H=64, W=128, C=32, seed=0):
@@ -637,7 +642,8 @@ def _check_backward(feats, rois, strides, out_size, finest, max_ratio, seed=0):
     d_levels, d_rois = rc.roi_align_backward_kernel(
         feats, rois, grad_out, strides, out_size, finest, max_ratio, ra.LONG_SPAN_CAP)
     torch.cuda.synchronize()
-    assert rc.roi_align_backward_kernel.launches == before + int(rois.shape[0] > 0)
+    assert rc.roi_align_backward_kernel.launches == before + BACKWARD_LAUNCHES * int(
+        rois.shape[0] > 0)
     ref_levels, ref_rois = _plain_grads(feats, rois, strides, out_size, finest, max_ratio,
                                         grad_out)
     rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
@@ -684,13 +690,27 @@ def test_backward_launch_shapes(cuda_device, dtype, C, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_contended_taps(cuda_device, dtype):
-    """Hundreds of RoIs on the same taps: the atomics of every bin meet on
-    one level cell."""
+    """Hundreds of RoIs on the same taps: every bin of each meets on a few
+    level cells, and one tile walks 600 RoIs of its bucket (three chunks
+    of the tile kernel's block) among other keys'; the hot tile's sums
+    repeat bit for bit."""
     feats = _pyramid5(cuda_device, dtype, seed=4)
-    base = torch.tensor([[0, 10.0, 10.0, 40.0, 30.0], [1, 60.0, 20.0, 61.0, 21.0]],
+    base = torch.tensor([[0, 10.0, 10.0, 40.0, 30.0], [1, 60.0, 20.0, 61.0, 21.0],
+                         [0, 12.0, 11.0, 13.0, 12.5], [0, 9.0, 12.0, 14.0, 13.0],
+                         [0, 11.0, 9.0, 15.0, 14.0]],
                         device=cuda_device)
     rois = base.repeat(200, 1)
-    _check_backward(feats, rois, STRIDES5, (7, 7), 10.0, 3, seed=4)
+    d_levels, d_rois = _check_backward(feats, rois, STRIDES5, (7, 7), 10.0, 3, seed=4)
+    ix = rc.roi_align_backward_kernel.index(feats, rois, STRIDES5, (7, 7), 10.0, 3,
+                                            ra.LONG_SPAN_CAP)
+    assert int(torch.diff(ix.offsets).max()) >= 600
+    grad_out = torch.randn((rois.shape[0], 7, 7, feats[0].shape[-1]), device=cuda_device,
+                           generator=torch.Generator(device=cuda_device).manual_seed(4)
+                           ).to(dtype)
+    again = rc.roi_align_backward_kernel(feats, rois, grad_out, STRIDES5, (7, 7), 10.0, 3,
+                                         ra.LONG_SPAN_CAP)
+    assert all(torch.equal(a, b) for a, b in zip(d_levels, again[0]))
+    assert torch.equal(d_rois, again[1])
 
 
 @pytest.mark.cuda
@@ -707,10 +727,154 @@ def test_backward_takes_no_rois(cuda_device):
 
 @pytest.mark.cuda
 def test_backward_keeps_every_value_in_registers(cuda_device):
+    """Each of the backward's kernels, in each dtype: no spills."""
     attributes = rc.roi_align_backward_kernel.attributes()
-    assert set(attributes) == {"bfloat16", "float32"}
+    assert set(attributes) == {"rois bfloat16", "rois float32", "buckets",
+                               "levels bfloat16", "levels float32"}
     for a in attributes.values():
         assert a["local_bytes"] == 0 and a["registers"] > 0
+
+
+def _grad_out(feats, n, out_size, seed):
+    dev = feats[0].device
+    return torch.randn((n,) + tuple(out_size) + (feats[0].shape[-1],), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(seed)
+                       ).to(feats[0].dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_size,max_ratio", [((7, 7), 6), ((14, 14), 4)])
+def test_backward_is_bit_repeatable(cuda_device, dtype, out_size, max_ratio):
+    """Two calls give bitwise-equal level and RoI gradients: no atomics."""
+    feats = _pyramid5(cuda_device, dtype, C=64, seed=6)
+    rois = _level_rois(cuda_device, n=300, seed=6)
+    grad_out = _grad_out(feats, rois.shape[0], out_size, 6)
+    args = (feats, rois, grad_out, STRIDES5, out_size, 4.0, max_ratio, ra.LONG_SPAN_CAP)
+    first, second = rc.roi_align_backward_kernel(*args), rc.roi_align_backward_kernel(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first[0], second[0]))
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_writes_every_cell(cuda_device, dtype):
+    """The level gradients come from torch.empty: blocks of their sizes
+    filled with NaN and freed first come back without a NaN, the cells no
+    tap reaches 0."""
+    feats = _pyramid5(cuda_device, dtype, C=64, seed=7)
+    rois = _level_rois(cuda_device, n=12, seed=7)
+    blocks = [torch.full(f.shape, float("nan"), dtype=dtype, device=cuda_device)
+              for f in feats]
+    del blocks
+    d_levels, _ = _check_backward(feats, rois, STRIDES5, (7, 7), 4.0, 3, seed=7)
+    for d in d_levels:
+        assert bool(torch.isfinite(d).all())
+    assert any(bool((d == 0).any()) for d in d_levels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_with_zero_gradient_rois(cuda_device, dtype):
+    """RoIs whose output gradient is zero (a step's padded slots) stay out
+    of the tile kernel's buckets: the gradients are still the plain
+    version's, theirs exactly 0 in the RoI gradient, and every output
+    gradient zero gives zero levels."""
+    feats = _pyramid5(cuda_device, dtype, C=64, seed=12)
+    rois = _level_rois(cuda_device, n=120, seed=12)
+    for zero_every in (2, 1):
+        grad_out = _grad_out(feats, rois.shape[0], (7, 7), 12)
+        dead = torch.arange(rois.shape[0], device=cuda_device) % zero_every == 0
+        grad_out[dead] = 0
+        d_levels, d_rois = rc.roi_align_backward_kernel(
+            feats, rois, grad_out, STRIDES5, (7, 7), 4.0, 3, ra.LONG_SPAN_CAP)
+        ref_levels, ref_rois = _plain_grads(feats, rois, STRIDES5, (7, 7), 4.0, 3, grad_out)
+        rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+        for got, ref in zip(d_levels, ref_levels):
+            _grad_close(got, ref.to(dtype), rtol, 1e-5)
+        _grad_close(d_rois, ref_rois, 1e-4, 1e-4)
+        assert bool((d_rois[dead] == 0).all())
+        if zero_every == 1:
+            assert all(not bool(d.any()) for d in d_levels)
+
+
+# RoIs whose taps end on a tile's last row or column, start on the next
+# tile's first, straddle tile corners, or reach a level's ragged last row
+# and column (a 72x136 canvas: levels of 18x34, 18x34, 9x17, 4x8, 2x4
+# cells, none a whole number of tiles): edges of 32 pixels at stride 4 are
+# tile edges in both dtypes (8 rows, 4 columns)
+TILE_EDGES = np.array([
+    [0, 28.0, 28.0, 36.0, 36.0], [0, 30.0, 2.0, 33.0, 5.0], [1, 2.0, 30.0, 5.0, 34.0],
+    [1, 60.0, 60.0, 68.0, 70.0], [0, 62.0, 26.0, 66.0, 38.0], [1, 94.0, 30.0, 98.0, 33.0],
+    [0, 120.0, 62.0, 136.0, 72.0], [1, 128.0, 0.0, 136.0, 72.0], [0, 0.0, 64.0, 136.0, 72.0],
+    [1, 100.0, 40.0, 140.0, 80.0], [0, 126.0, 66.0, 135.5, 71.5], [1, 31.5, 31.5, 32.5, 32.5],
+], np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_size,finest,max_ratio", [((7, 7), 4.0, 3), ((14, 14), 8.0, 2)])
+def test_backward_on_tile_and_level_edges(cuda_device, dtype, out_size, finest, max_ratio):
+    feats = _pyramid5(cuda_device, dtype, H=72, W=136, C=32, seed=8)
+    rois = torch.from_numpy(TILE_EDGES).to(cuda_device)
+    _check_backward(feats, rois, STRIDES5, out_size, finest, max_ratio, seed=8)
+    _check_backward(feats, rois.repeat(30, 1), STRIDES5, out_size, finest, max_ratio, seed=9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_allocates_no_float32_pyramid(cuda_device, dtype):
+    """One call's peak memory over what it returns is its index arrays and
+    partial sums, far below a float32 copy of the pyramid."""
+    feats = _pyramid5(cuda_device, dtype, H=256, W=512, C=256, seed=10)
+    rois = _level_rois(cuda_device, n=200, H=256, W=512, seed=10)
+    grad_out = _grad_out(feats, rois.shape[0], (7, 7), 10)
+    n, mr = rois.shape[0], 3
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    d_levels, d_rois = rc.roi_align_backward_kernel(
+        feats, rois, grad_out, STRIDES5, (7, 7), 4.0, mr, ra.LONG_SPAN_CAP)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    returned = sum(d.numel() * d.element_size() for d in d_levels) + d_rois.numel() * 4
+    split = rc.roi_align_backward_kernel.launch_shape(n, (7, 7))["split"]
+    index = n * (14 * 2 * mr * 8 + 4 * 4 + 4 + 4) + (split + 3) * n * 5 * 4
+    pyramid32 = sum(f.numel() for f in feats) * 4
+    assert peak <= returned + index + 2 ** 20, (peak, returned, index)
+    assert peak - returned < pyramid32 / 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_size,finest,max_ratio", [((7, 7), 20.0, 6), ((14, 14), 28.0, 4),
+                                                       ((7, 7), 4.0, 3)])
+def test_backward_index_matches_plain(cuda_device, out_size, finest, max_ratio):
+    """The kernel's index pass against ``roi_align.backward_index`` on the
+    card: keys, buckets and rectangles equal; its tap lists those of
+    ``merged_bin_taps`` (taps equal, weights to 1e-6)."""
+    feats = _pyramid5(cuda_device, torch.bfloat16, H=384, W=1280, C=16, seed=11)
+    rois = _level_rois(cuda_device, n=300, H=384, W=1280, seed=11)
+    sizes = [(f.shape[1], f.shape[2]) for f in feats]
+    ix = rc.roi_align_backward_kernel.index(feats, rois, STRIDES5, out_size, finest, max_ratio,
+                                            ra.LONG_SPAN_CAP)
+    ref = ra.backward_index(sizes, rois, STRIDES5, out_size, finest, max_ratio,
+                            ra.LONG_SPAN_CAP, feats[0].shape[0])
+    assert torch.equal(ix.keys.long(), ref.keys)
+    assert torch.equal(ix.order.long(), ref.order)
+    assert torch.equal(ix.offsets.long(), ref.offsets)
+    assert torch.equal(ix.rects.long(), ref.rects)
+    t = ra.merged_bin_taps(sizes, rois, STRIDES5, out_size, finest, max_ratio,
+                           ra.LONG_SPAN_CAP)
+    taps = torch.cat([t.rows, t.cols], 1).tolist()
+    weights = torch.cat([t.row_w, t.col_w], 1).tolist()
+    got_taps = ix.lists[..., 0].tolist()
+    got_w = ix.lists[..., 1].view(torch.float32).tolist()
+    for i in range(rois.shape[0]):
+        for q in range(len(taps[i])):
+            want = {a: w for a, w in zip(taps[i][q], weights[i][q]) if w != 0}
+            got = {a: w for a, w in zip(got_taps[i][q], got_w[i][q]) if a >= 0}
+            assert want.keys() == got.keys(), (i, q)
+            assert all(abs(got[a] - want[a]) <= 1e-6 for a in want), (i, q)
 
 
 @pytest.mark.cuda
@@ -727,7 +891,7 @@ def test_direct_route_is_differentiable(cuda_device, dtype):
     grad_out = torch.randn_like(out)
     grads = torch.autograd.grad(out, feats + [rois], grad_out)
     assert (roi_align_kernel.launches, rc.roi_align_backward_kernel.launches) == (
-        counts[0] + 1, counts[1] + 1)
+        counts[0] + 1, counts[1] + BACKWARD_LAUNCHES)
     ref_levels, ref_rois = _plain_grads(feats, rois, STRIDES5, (7, 7), 4.0, 3, grad_out)
     rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
     for got, ref in zip(grads[:-1], ref_levels):

@@ -16,8 +16,9 @@ batch: ``test_torch_train_step.py``'s tiny float32 configuration, seeded
 weights, a global batch of 4 (``synthetic_train_batch``; and a
 ``synthetic_scene_batch`` under ``train.debug`` and ``refined_reassign``,
 where the PnP recovers poses and ``mean_iou`` is not 0), one set of global
-``TrainDraws`` drawn with numpy; each rank takes its 2 images and its slice
-of the draws. The one-process step is the one held to JAX's
+``TrainDraws`` from ``utils/draws.py:train_draws`` (as ``train_detector``
+makes them); each rank takes its 2 images and its slice of the draws. The
+one-process step is the one held to JAX's
 ``_train_forward`` gradient by ``test_torch_train_step.py``. Every
 batch-wide reduction is also checked alone (``run_units``). A negative
 control runs the ranks again with ``global_sum`` set to the identity: the
@@ -71,14 +72,15 @@ from monorun_tpu_torch.apis import test as tapi_test
 from monorun_tpu_torch.apis.inference import InferenceSession
 from monorun_tpu_torch.config import get_config as tget_config
 from monorun_tpu_torch.data.kitti import KITTI3DDataset
-from monorun_tpu_torch.models.detector import MonoRUn, TrainDraws, init_random_weights
+from monorun_tpu_torch.models.detector import MonoRUn, init_random_weights
+from monorun_tpu_torch.utils.draws import train_draws
 from monorun_tpu_torch.utils.synthetic import synthetic_scene_batch, synthetic_train_batch
 
 from test_dist_eval import _simulate_multiprocess_gather
 from test_torch_eval_path import TINY_OPTIONS, configs
 from test_torch_train_entry import TINY_OPTIONS as TRAIN_OPTIONS
 from test_torch_train_loop import cpu_share, write_small_kitti  # noqa: F401
-from test_torch_train_step import proposal_count, tiny_train_config
+from test_torch_train_step import tiny_train_config
 from torch_parallel_child import gather_cases, run_step, run_units
 
 REPO = Path(__file__).resolve().parents[1]
@@ -104,33 +106,6 @@ def child_env() -> dict:
     return env
 
 
-def global_draws(cfg, model, batch, rng) -> TrainDraws:
-    """Every random draw of one step on the global ``batch``, from numpy."""
-    tr, gh = cfg.train, cfg.global_head
-    with torch.no_grad():
-        cls, _ = model.rpn_head(model.extract_feats(torch.from_numpy(batch["images"][:1]))
-                                [cfg.rpn.starting_level:])
-    n_anchors = sum(c[0].numel() for c in cls)
-    n_props = proposal_count(cfg, [(c.shape[1], c.shape[2]) for c in cls], cls[0].shape[-1])
-    n_gt = batch["gt_boxes"].shape[1]
-    n, C = B * tr.max_pos, cfg.neck.out_channels
-
-    def u(*shape):
-        return torch.from_numpy(rng.uniform(size=shape).astype(np.float32))
-
-    return TrainDraws(
-        rpn_noise=(u(B, n_anchors), u(B, n_anchors)),
-        rcnn_noise=(u(B, n_props + n_gt), u(B, n_props + n_gt)),
-        rcnn_noise_refined=(u(B, tr.rcnn_num_samples + n_gt),
-                            u(B, tr.rcnn_num_samples + n_gt)),
-        global_masks=(u(n, C) < 1 - gh.dropout2d_rate, u(n, gh.fc_out_channels)
-                      < 1 - gh.dropout_rate, u(n, gh.fc_out_channels) < 1 - gh.dropout_rate),
-        noc_mask=u(n, C) < 1 - cfg.noc_head.dropout2d_rate,
-        ransac_keys=u(n, cfg.pose_head.ransac_hypotheses, cfg.noc_head.dense_size ** 2),
-        score_uniform=u(n),
-    )
-
-
 def unit_inputs():
     """Global inputs of the unit reductions, 16 rows (8 per rank). The
     score IoUs give rank 0 one positive of 8 and rank 1 three: each rank's
@@ -153,14 +128,16 @@ def make_job(tmp: Path, threads: int):
     r = dataclasses.replace
     debug = r(cfg, train=r(cfg.train, debug=True, refined_reassign=True))
     model = init_random_weights(MonoRUn(cfg), torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(1)
+    gen = torch.Generator().manual_seed(1)
     steps = {}
     for name, c, batch_np in (
             ("plain", cfg, synthetic_train_batch(cfg, B, (H, W), num_gt=6, num_pts=32, seed=0)),
             ("scene_debug", debug, synthetic_scene_batch(debug, B, (H, W), num_gt=6, num_pts=32,
                                                          seed=0))):
         batch = {k: torch.from_numpy(np.array(v)) for k, v in batch_np.items()}
-        steps[name] = dict(cfg=c, batch=batch, draws=global_draws(c, model, batch_np, rng))
+        # the global batch's draws, as train_detector makes them on every rank
+        steps[name] = dict(cfg=c, batch=batch, draws=train_draws(
+            c, B, (H, W), batch["gt_boxes"].shape[1], gen, "cpu"))
 
     root = tmp / "mini_kitti"
     make_mini_kitti(str(root), n_images=EVAL_IMAGES, seed=1)

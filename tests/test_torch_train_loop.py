@@ -21,8 +21,9 @@ newest ``step_N`` with its restarted data order.
 follows JAX's rule, and at the tiny training configuration steps 3-4
 after a save at step 2 and a load into a fresh model and optimizer give
 the uninterrupted run's losses and parameters, bit for bit (on the CPU,
-with PyTorch's deterministic algorithms: on the GPU the backward
-kernel's float atomics make a step not bitwise repeatable).
+with PyTorch's deterministic algorithms; on the GPU the RoIAlign
+backward has no atomics and repeats bit for bit, but cuDNN's convolution
+backward does not unless ``torch.use_deterministic_algorithms`` is on).
 """
 
 import dataclasses
