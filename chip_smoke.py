@@ -71,12 +71,10 @@ Phases, each printing its own lines:
    output gradient is zero left out as the kernel leaves them); the parts
    timed alone (the index pass, the levels' gradient with it, the RoIs'
    gradient); with ``--ab roi_align_backward=SOURCE`` (a build of the
-   current interface, or of the earlier float32-scratch one,
-   ``ScratchBackward``) that build in turns with this one, its agreement
+   current interface) that build in turns with this one, its agreement
    with the plain version and whether it equals this one bit for bit,
    its design bytes, and its parts alone (the index pass, the levels',
-   the RoIs'; for the scratch interface the scratch's zero fill, the
-   kernel on the levels, on the RoIs, the cast);
+   the RoIs');
 10. training kitti_multiclass at full width (batch samples_per_device=3,
    384x1280, bfloat16 compute, seeded random weights, a seeded
    ``synthetic_train_batch``) through ``create_train_state`` ->
@@ -163,17 +161,41 @@ Phases, each printing its own lines:
    uses on the card, and ``tools.test --distributed`` (batch 4) on phase
    12's, whose results must match phase 12's within phase 13's tolerances
    with validity masks and labels equal;
-17. a ``kernels`` JSON line (the registers and local memory bytes per
+17. the five fast serving presets (``kitti_multiclass_fast``, ``_fast_r50``,
+   ``_fast2``, ``_fast2_r50``, ``_fast3_r50``), each at full width, depth
+   and canvas with seeded random weights, served at batch 8 through
+   ``init_inference(raw=True)`` -> ``InferenceSession.run`` as in phase 4:
+   detections checked, exactly 3 direct-kernel launches per forward,
+   each rung's three aligns (its proposals: 4096, 2048 or 1536 RoIs;
+   detections 8 x 48, 24 or 16) against the plain version with times, ms
+   per batch and frames/s beside phase 4's kitti_multiclass; then phase
+   5's tiny check at the no-CARAFE cut (``dense_size == roi_size``, a
+   196-point PnP);
+18. the training closure (``tests/torch_e2e_closure.py``, the port's
+   ``tests/test_e2e_synthetic.py``): a nano kitti_car_lidar_supv trained
+   on 12 synthetic scenes through ``create_train_state`` -> ``train_step``
+   on the card (up to 420 steps, JAX's early stop), served by
+   ``InferenceSession`` and scored by the port's ``kitti_eval``, in
+   float32 with every one of JAX's bars (finite gradients, ``mean_iou``,
+   the moderate APs, the head-slot, crowded-scene, proposal-cut and 0.75x
+   resolution guards, and the fast2 guard's second training at
+   ``dense_size`` 14), a missed bar failing the run; then the base
+   training once more in bfloat16 (finiteness and ``mean_iou`` its only
+   bars; its APs a reading): 3 direct and 9 backward launches a step and 3
+   direct launches a served batch, the first step's aligns forward and
+   backward against the plain version (as in phase 10), the APs, steps
+   and seconds of every training;
+19. a ``kernels`` JSON line (the registers and local memory bytes per
    thread and dtype of the direct kernel, its backward and the four
    staged kernels, as the loaded build reports them, among their keys;
    local memory, a spill, fails the run; each path's launches of the
    direct kernel and its backward under ``launches_by_path``, the
    processes of phase 16 summed) and, last, the JSON result line.
 
-Every path (phases 4, 7, 8, 10, 12, 14, 15 and each of 16's) runs with
-all launch counts set to 0 just before it and read just after (in the
-process that runs it); a kernel that its path did not launch fails the
-run.
+Every path (phases 4, 7, 8, 10, 12, 14, 15, each of 16's, each rung of 17
+and each closure of 18) runs with all launch counts set to 0 just before
+it and read just after (in the process that runs it); a kernel that its
+path did not launch fails the run.
 
 Tolerances (kernel against plain version; both accumulate in float32):
 bfloat16 |d| <= 2^-7 |ref| + 1e-5 max(1, max|ref|), one bfloat16 rounding
@@ -211,11 +233,7 @@ sample (the RoI gradient along each axis). Printed apart as
 kernels' design moves, which reads the output gradient once in the
 per-RoI kernel and again for every tile a RoI meets (the bins staged
 there, counted from the kernel's own index pass by ``tile_loads``), and
-writes the tap lists once and reads them for every such tile;
-and for an A/B build of the float32-scratch interface the bytes of that
-design (``scratch_design_bytes``: the scratch of every level
-zero-filled, a float32 read-modify-write of each touched cell, and for
-bfloat16 levels the cast, 4 bytes read and 2 written per element).
+writes the tap lists once and reads them for every such tile.
 
 Any failed phase, or no GPU, exits non-zero without the last line.
 """
@@ -224,7 +242,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import dataclasses
 import json
 import math
@@ -275,6 +292,13 @@ from monorun_tpu_torch.tools import micro_bench
 from monorun_tpu_torch.tools import test as tools_test
 from monorun_tpu_torch.tools import train as tools_train
 from monorun_tpu_torch.tools.micro_bench import align_env, card_line, device_ms
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+import torch_e2e_closure as closure  # noqa: E402  (the closure's helper, no JAX)
+
+# phase 18 runs under torch's deterministic algorithms, and cuBLAS's need
+# this before CUDA starts
+os.environ.setdefault(*closure.CUBLAS_CONFIG)
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -415,21 +439,6 @@ def backward_work(feats, rois, strides, out_size, finest, max_ratio, tiles):
     distinct = tap_counts(feats, rois, strides, out_size, finest, max_ratio)[
         "distinct_taps_per_bin"] * bins
     return nbytes, int(2 * C * distinct + 2 * 2 * 4 * C * samples), design
-
-
-def scratch_design_bytes(feats, rois, strides, out_size, finest, max_ratio):
-    """The bytes a backward of the float32-scratch interface
-    (``ScratchBackward``) moves: the scratch of every level zero-filled, a
-    float32 read-modify-write of each touched cell, and for bfloat16
-    levels the cast (4 bytes read, 2 written per element)."""
-    C, item = feats[0].shape[-1], feats[0].element_size()
-    touched, _ = touched_cells(feats, rois, strides, out_size, finest, max_ratio)
-    n = rois.shape[0]
-    bins = n * out_size[0] * out_size[1]
-    cells = sum(f.shape[0] * f.shape[1] * f.shape[2] for f in feats)
-    cast = 6 if feats[0].dtype == torch.bfloat16 else 0
-    return (bins * C * item + touched * C * (item + 8) + cells * C * (4 + cast)
-            + n * 5 * 4 * 2)
 
 
 def tap_counts(feats, rois, strides, out_size, finest, max_ratio):
@@ -699,7 +708,7 @@ def phase_serve(cfg, flush, dev, card, profile, ab=()):
 
     if profile:
         profile_serve(sess, requests[:3], ms, profile)
-    return recs, counts, sess, requests, calls
+    return recs, counts, sess, requests, calls, ms
 
 
 # ---- staged kernels against their plain version -----------------------------
@@ -941,77 +950,6 @@ def grad_err(got, ref, rtol, atol_rel):
     return float(d.max()), bool(torch.isfinite(got).all()) and bool((d <= bound).all())
 
 
-class ScratchBackward:
-    """Another build of the backward with the float32-scratch C interface
-    (an earlier ``csrc/roi_align_bwd.cu``: ``roi_align_backward`` adds every
-    tap into one zeroed float32 scratch of all levels with a float4 atomic,
-    which the wrapper then casts to the levels' dtype), for ``--ab
-    roi_align_backward=SOURCE`` in phase 9. Its fill, kernel and cast are
-    timed apart."""
-
-    def __init__(self, source: Path):
-        self.source = Path(source)
-        self.build_log = ""
-        self._lib = None
-
-    def build(self):
-        if self._lib is not None:
-            return self._lib
-        lib, self.build_log = rc.build_source(self.source)
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.roi_align_backward.argtypes = [
-            I, I, ctypes.POINTER(P), ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(F),
-            ctypes.POINTER(ctypes.c_longlong), P, P, P, P, I, I, I, I, I, I, F, F, P]
-        lib.roi_align_backward.restype = I
-        lib.roi_align_backward_shape.argtypes = [I] * 3 + [ctypes.POINTER(I)] * 2
-        lib.roi_align_backward_shape.restype = I
-        self._lib = lib
-        return lib
-
-    def scratch(self, feats):
-        return torch.zeros(sum(f[..., 0].numel() for f in feats) * feats[0].shape[-1],
-                           dtype=torch.float32, device=feats[0].device)
-
-    def cast(self, feats, scratch):
-        out, o = [], 0
-        for f in feats:
-            out.append(scratch[o:o + f.numel()].view(f.shape).to(f.dtype))
-            o += f.numel()
-        return out
-
-    def launch(self, feats, rois, grad_out, strides, out_size, finest, max_ratio, scratch,
-               partial):
-        lib = self.build()
-        ptrs, dims = rc._level_args(feats, strides, max_ratio)
-        levels = len(feats)
-        offsets = [sum(g.numel() for g in feats[:i]) for i in range(levels)]
-        rc_ = lib.roi_align_backward(
-            int(feats[0].dtype == torch.bfloat16), levels, (ctypes.c_void_p * levels)(*ptrs),
-            (ctypes.c_longlong * len(dims))(*dims),
-            (ctypes.c_float * levels)(*[1.0 / s for s in strides]),
-            (ctypes.c_longlong * levels)(*offsets), rois.data_ptr(), grad_out.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
-            partial.data_ptr() if partial is not None else None,
-            rois.shape[0], feats[0].shape[0], feats[0].shape[-1], out_size[0], out_size[1],
-            int(max_ratio), float(finest), float(ra.LONG_SPAN_CAP * strides[0]),
-            rc._stream(feats[0].device))
-        check(rc_ == 0, f"the A/B backward {self.source} failed to launch ({rc_})")
-
-    def partial(self, rois, out_size):
-        warps, split = ctypes.c_int(), ctypes.c_int()
-        self.build().roi_align_backward_shape(rois.shape[0], out_size[0], out_size[1],
-                                              ctypes.byref(warps), ctypes.byref(split))
-        return torch.empty((split.value, rois.shape[0], 4), dtype=torch.float32,
-                           device=rois.device)
-
-    def __call__(self, feats, rois, grad_out, strides, out_size, finest, max_ratio):
-        scratch, partial = self.scratch(feats), self.partial(rois, out_size)
-        self.launch(feats, rois, grad_out, strides, out_size, finest, max_ratio, scratch,
-                    partial)
-        d_rois = torch.cat([partial.new_zeros(rois.shape[0], 1), partial.sum(0)], 1)
-        return self.cast(feats, scratch), d_rois
-
-
 def tile_loads(kernel, feats, rois, grad_out, strides, out_size, finest, max_ratio):
     """The tile kernel's work on a call, from the kernel's own index pass
     and without the RoIs whose output gradient is zero (which it leaves
@@ -1083,8 +1021,8 @@ def compare_backward(label, feats, rois, grad_out, strides, out_size, finest, ma
     """Backward kernel against the plain version's autograd on one call,
     with its bit-repeatability and its tiles' load; ``split`` also times
     its parts alone (the index pass, the levels' gradient, the RoIs'), and
-    ``ab`` other builds (``ScratchBackward``, or ``RoIAlignBackwardKernel``
-    of another source) in turns with this one (other, this, this, other),
+    ``ab`` other builds (``RoIAlignBackwardKernel`` of another source) in
+    turns with this one (other, this, this, other),
     their parts, design bytes, and whether their outputs equal this one's
     bit for bit. Prints one line and returns its record."""
     kernel = rc.roi_align_backward_kernel
@@ -1130,8 +1068,7 @@ def compare_backward(label, feats, rois, grad_out, strides, out_size, finest, ma
             rois=device_ms(lambda: run_kernel(need_features=False), 15, flush))
     rec["ab"] = []
     for other in ab:
-        scratch_build = isinstance(other, ScratchBackward)
-        args = (feats, rois, grad_out) + (spec[:-1] if scratch_build else spec)
+        args = (feats, rois, grad_out) + spec
         (o_levels, o_rois) = other(*args)
         o_errs = [grad_err(g, r.to(dtype), *GRAD_TOLERANCE[dtype])
                   for g, r in zip(o_levels, ref_levels)]
@@ -1142,22 +1079,12 @@ def compare_backward(label, feats, rois, grad_out, strides, out_size, finest, ma
         del o_levels, o_rois
         calls = {other: lambda: other(*args), kernel: run_kernel}
         turns = [device_ms(calls[k], 15, flush) for k in (other, kernel, kernel, other)]
-        if scratch_build:
-            scratch, partial = other.scratch(feats), other.partial(rois, out_size)
-            parts = dict(
-                fill=device_ms(lambda: other.scratch(feats), 15, flush),
-                cast=device_ms(lambda: other.cast(feats, scratch), 15, flush),
-                levels=device_ms(lambda: other.launch(*args, scratch, None), 15, flush),
-                rois=device_ms(lambda: other.launch(*args, None, partial), 15, flush))
-            del scratch
-            o_design = scratch_design_bytes(feats, rois, *spec[:-1])
-        else:
-            parts = dict(
-                index=device_ms(lambda: other.index(feats, rois, *spec), 15, flush),
-                levels=device_ms(lambda: other(*args, need_rois=False), 15, flush),
-                rois=device_ms(lambda: other(*args, need_features=False), 15, flush))
-            o_design = backward_work(feats, rois, *spec[:-1], tile_loads(
-                other, feats, rois, grad_out, *spec[:-1]))[2]
+        parts = dict(
+            index=device_ms(lambda: other.index(feats, rois, *spec), 15, flush),
+            levels=device_ms(lambda: other(*args, need_rois=False), 15, flush),
+            rois=device_ms(lambda: other(*args, need_features=False), 15, flush))
+        o_design = backward_work(feats, rois, *spec[:-1], tile_loads(
+            other, feats, rois, grad_out, *spec[:-1]))[2]
         rec["ab"].append(dict(
             source=str(other.source), agrees=o_ok, bit_equal=same, ms_turns=turns,
             ms=statistics.median([turns[0], turns[3]]), this_ms=statistics.median(turns[1:3]),
@@ -1175,7 +1102,7 @@ def phase_backward(cfg, flush, dev, ab=()):
     """The backward kernel on the batch-8 pyramid of phase 3 at the training
     step's three align shapes (per image: 512 sampled RoIs and 128
     positives at batch 3, so 1536 and 384), in both dtypes, its parts
-    timed apart, and ``ab`` (``ScratchBackward`` builds) in turns."""
+    timed apart, and ``ab`` (other builds of the backward) in turns."""
     gen = torch.Generator(device=dev).manual_seed(2)
     H, W = cfg.data.pad_height, cfg.data.pad_width
     strides = ra.align_strides(cfg.neck.lazy_lower, cfg.bbox_head.featmap_strides)
@@ -1472,11 +1399,20 @@ def head_draws(cfg, n, gen):
     return HeadDraws(masks, keys)
 
 
-def phase_tiny():
+def tiny_no_carafe_config():
+    """The tiny configuration at the fast2 rung's cut: ``dense_size ==
+    roi_size`` (no CARAFE, a 196-point PnP), a quarter of the head slots."""
+    cfg = tiny_config()
+    r = dataclasses.replace
+    return r(cfg, noc_head=r(cfg.noc_head, roi_size=14, dense_size=14),
+             test=r(cfg.test, head_slots=3))
+
+
+def phase_tiny(cfg=None, what="tiny"):
     """The same tiny model, weights and draws on the GPU and on the CPU:
     labels and validity exact, 2D outputs to 1e-4 and 3D outputs to 1e-3
     of their scale (8 LM iterations compound float32 rounding)."""
-    cfg = tiny_config()
+    cfg = cfg or tiny_config()
     B, K = 2, cfg.test.head_slots
     gen = torch.Generator().manual_seed(5)
     raw = torch.randint(0, 256, (B, 64, 128, 3), generator=gen, dtype=torch.uint8)
@@ -1495,10 +1431,10 @@ def phase_tiny():
         out[device] = to_cpu(det)
         if device == "cuda":
             check(roi_align_kernel.launches == before + 3,
-                  "the tiny GPU forward did not run the kernel 3 times")
+                  f"the {what} GPU forward did not run the kernel 3 times")
     cpu, gpu = out["cpu"], out["cuda"]
-    check(torch.equal(cpu.labels, gpu.labels), "tiny config: labels differ GPU vs CPU")
-    check(torch.equal(cpu.valid, gpu.valid), "tiny config: validity differs GPU vs CPU")
+    check(torch.equal(cpu.labels, gpu.labels), f"{what} config: labels differ GPU vs CPU")
+    check(torch.equal(cpu.valid, gpu.valid), f"{what} config: validity differs GPU vs CPU")
     errs = {}
     for name, rtol in (("bboxes_2d", 1e-4), ("scores_2d", 1e-4), ("bboxes_3d", 1e-3),
                        ("pose_cov", 1e-3)):
@@ -1506,9 +1442,9 @@ def phase_tiny():
         scale = float(b.abs().max().clamp(min=1e-6))
         errs[name] = float((a - b).abs().max()) / scale
         check(bool(((a - b).abs() <= rtol * b.abs() + rtol * scale).all()),
-              f"tiny config: {name} differs GPU vs CPU (max error {errs[name]} of scale)")
-    print("tiny " + json.dumps(dict(valid=int(cpu.valid.sum()),
-                                    rel_err_of_scale=errs)), flush=True)
+              f"{what} config: {name} differs GPU vs CPU (max error {errs[name]} of scale)")
+    print(f"{what} " + json.dumps(dict(valid=int(cpu.valid.sum()),
+                                      rel_err_of_scale=errs)), flush=True)
 
 
 def to_cpu(det):
@@ -2036,6 +1972,24 @@ def dp_config():
     return dataclasses.replace(get_config("kitti_multiclass"), compute_dtype="float32")
 
 
+def dp_model(cfg, device):
+    """The model, train state and optimizer of phase 16's step, with the
+    weights of the serving init (``init_random_weights``' plain normal,
+    seeded 0), not the training init's truncated normal. On the noise of
+    ``synthetic_train_batch`` some PnP rows at random weights are valid
+    but nearly degenerate, and their covariances amplify the rounding
+    that differs between a batch of 6 and two of 3 to percents. At the
+    serving init the score head's loss on them is next to nothing, so every
+    gradient is held across ranks at phase 11's tolerance; at the
+    training init that loss is larger, and the pose-norm weight's
+    gradient carries the amplified rounding (ROADMAP Queue 3). The score head's
+    gradient across ranks is held on the CPU instead, at the tiny
+    configuration (``tests/test_torch_parallel.py``)."""
+    model, state, opt = create_train_state(cfg, total_steps=1000, device=device, seed=0)
+    init_random_weights(model, torch.Generator().manual_seed(0))
+    return model, state, opt
+
+
 def dp_draws(cfg, batch, seed):
     """Every random draw of one training step on the global ``batch``
     (``utils/draws.py:train_draws``, as ``train_detector`` makes them), from
@@ -2103,7 +2057,7 @@ def dp_rank(rank, port, loop_root):
     with parallel.process_group(backend="gloo", device="cuda:0") as dev:
         rc.build_all()
         cfg = dp_config()
-        model, state, opt = create_train_state(cfg, total_steps=1000, device=dev, seed=0)
+        model, state, opt = dp_model(cfg, dev)
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in synthetic_train_batch(cfg, DP_BATCH, (cfg.data.pad_height,
                                                                    cfg.data.pad_width),
@@ -2282,7 +2236,7 @@ def phase_dp(card, eval_results, loop_stats):
     t_phase = time.perf_counter()
     # (i) the one-process step on the global batch of 6, on the card
     cfg = dp_config()
-    model, state, opt = create_train_state(cfg, total_steps=1000, device="cuda", seed=0)
+    model, state, opt = dp_model(cfg, "cuda")
     dev = next(model.parameters()).device
     H, W = cfg.data.pad_height, cfg.data.pad_width
     batch = {k: torch.as_tensor(v, device=dev)
@@ -2419,6 +2373,117 @@ def phase_dp(card, eval_results, loop_stats):
         align_err=max(r["align_err"] for r in ranks))
 
 
+# ---- the fast serving presets ------------------------------------------------
+
+FAST_RUNGS = ("kitti_multiclass_fast", "kitti_multiclass_fast_r50", "kitti_multiclass_fast2",
+              "kitti_multiclass_fast2_r50", "kitti_multiclass_fast3_r50")
+
+
+def phase_fast(card, flush, base_ms):
+    """Phase 17 (the module docstring): every fast rung served at batch 8,
+    its launches per forward, its aligns against the plain version, beside
+    phase 4's kitti_multiclass; then the tiny GPU-against-CPU check at the
+    no-CARAFE cut. Returns (the align records, each rung's counts)."""
+    recs, counts_of = [], {}
+    for name in FAST_RUNGS:
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        sess = init_inference(name, batch_size=BATCH, device="cuda", seed=0, raw=True)
+        build_s = time.perf_counter() - t0
+        gen = torch.Generator(device=sess.device).manual_seed(1)
+        requests = [kitti_inputs(cfg, BATCH, gen, sess.device) for _ in range(REQUESTS + 2)]
+        torch.cuda.reset_peak_memory_stats()
+        with align_env({}):
+            reset_counts()
+            times, dets, recorded = serve_requests(sess, requests, record=True)
+            counts = read_counts()
+        check_launches(counts, {"roi_align": 3}, len(requests), f"serve {name}")
+        for det in dets:
+            check_detections(det, cfg, BATCH)
+        ms = statistics.median(times[2:])
+        rung_recs = check_recorded_aligns(f"fast {name}", recorded, cfg, flush)[0]
+        print("fast " + json.dumps(dict(
+            config=name, card=card, batch=BATCH, requests=REQUESTS, ms_per_batch=ms,
+            frames_per_s=BATCH * 1e3 / ms, launches_per_forward={
+                k: v / len(requests) for k, v in counts.items() if v},
+            kitti_multiclass_ms_per_batch=base_ms,
+            kitti_multiclass_frames_per_s=BATCH * 1e3 / base_ms,
+            align_rois=[int(r[1].shape[0]) for r in recorded],
+            align_max_abs_err=max(r["max_abs_err"] for r in rung_recs),
+            backbone_depth=cfg.backbone.depth, test_scale=cfg.data.test_scale,
+            pad=[cfg.data.pad_height, cfg.data.pad_width],
+            dense_size=cfg.noc_head.dense_size, ms_each=times,
+            valid_detections=[int(d.valid.sum()) for d in dets],
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, build_s=build_s)),
+            flush=True)
+        recs += rung_recs
+        counts_of[name] = counts
+        del sess, requests, dets, recorded
+        torch.cuda.empty_cache()
+    with align_env({}):
+        phase_tiny(tiny_no_carafe_config(), "tiny no-CARAFE")
+    return recs, counts_of
+
+
+# ---- the training closure: train, serve, KITTI AP --------------------------------
+
+
+def phase_closure(card, flush):
+    """Phase 18 (the module docstring): ``tests/torch_e2e_closure.py`` on the
+    card in float32 with every one of JAX's bars, then the base closure in
+    bfloat16 as a reading. Returns (the backward records, the forwards'
+    largest error, each run's counts)."""
+    forwards = [0]
+    run = InferenceSession.run
+
+    def counted_run(self, *args, **kw):
+        forwards[0] += 1
+        return run(self, *args, **kw)
+
+    results, counts_of, recs, fwd_err = {}, {}, [], 0.0
+    for dtype in ("float32", "bfloat16"):
+        recorded, forwards[0] = [], 0
+        t0 = time.perf_counter()
+        with align_env({}), patched(InferenceSession, "run", counted_run):
+            reset_counts()
+            out = closure.run_closure(
+                "cuda", dtype, guards=dtype == "float32",
+                record=lambda: recording_aligns(recorded, grad=True))
+            counts = read_counts()
+        out["phase_s"] = time.perf_counter() - t0
+        steps = out["base"]["steps"] + out.get("fast2", {}).get("steps", 0)
+        # 3 forward and 9 backward launches a step, 3 a served batch
+        want = dict({name: 0 for name in counts},
+                    roi_align=STEP_LAUNCHES["roi_align"] * steps + 3 * forwards[0],
+                    roi_align_backward=STEP_LAUNCHES["roi_align_backward"] * steps)
+        print(f"launches closure {dtype}: {json.dumps(counts)} over {steps} steps and "
+              f"{forwards[0]} served batches", flush=True)
+        check(counts == want, f"closure {dtype}: launches {counts}, expected {want}")
+        results[dtype], counts_of[dtype] = out, counts
+        # the first training step's aligns, forward and backward
+        r, err = check_train_aligns(f"closure {dtype}", recorded, closure.nano_config(dtype),
+                                    flush)
+        recs += r
+        fwd_err = max(fwd_err, err)
+        del recorded
+        print(f"closure {dtype} " + json.dumps(
+            {k: v for k, v in out.items() if k != "summary"}, default=float), flush=True)
+        for what, ok in closure.bars(out).items():
+            print(f"closure {dtype} bar {what}: {'met' if ok else 'MISSED'}", flush=True)
+            check(ok, f"closure {dtype}: {what} missed")
+        torch.cuda.empty_cache()
+    f32, bf16 = results["float32"], results["bfloat16"]
+    print("closure " + json.dumps(dict(
+        card=card, float32_ap=f32["base"]["ap"], bfloat16_ap=bf16["base"]["ap"],
+        float32_steps=f32["base"]["steps"], bfloat16_steps=bf16["base"]["steps"],
+        fast2_ap=f32["fast2"]["ap"], fast2_steps=f32["fast2"]["steps"],
+        train_s=dict(float32=f32["base"]["train_s"], fast2=f32["fast2"]["train_s"],
+                     bfloat16=bf16["base"]["train_s"]),
+        phase_s=f32["phase_s"] + bf16["phase_s"])), flush=True)
+    print(f32["summary"], flush=True)
+    return recs, fwd_err, counts_of
+
+
 # ---- main ----------------------------------------------------------------
 
 
@@ -2459,8 +2524,8 @@ def main() -> int:
                          "(a name of the kernels line; default roi_align, the direct "
                          "kernel), in turns with this one: phases 3-4 for the direct "
                          "kernel, phase 6 for a staged one, phases 9-10 for "
-                         "roi_align_backward (a source of its interface, or of "
-                         "the earlier float32-scratch one: ScratchBackward) (repeatable)")
+                         "roi_align_backward (a source of its current interface) "
+                         "(repeatable)")
     args = ap.parse_args()
     by_name = {name: k for k, name in KERNEL_NAMES.items()}
     ab_specs = []
@@ -2500,10 +2565,7 @@ def main() -> int:
         check(not reductions, f"the backward has atomics, so its sums' order can change "
                               f"from run to run: {reductions}")
         ab = [rc.RoIAlignKernel(source=src) for k, src in ab_specs if k is roi_align_kernel]
-        # a source of the current interface, or of the earlier float32 scratch
         ab_backward = [rc.RoIAlignBackwardKernel(source=src)
-                       if "roi_align_backward_levels" in src.read_text()
-                       else ScratchBackward(src)
                        for k, src in ab_specs if k is rc.roi_align_backward_kernel]
         ab_staged = {}
         for k, src in ab_specs:
@@ -2519,8 +2581,8 @@ def main() -> int:
         flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
         with align_env({}):
             synthetic = phase_kernel(cfg, flush, dev, ab)
-        forward, default_counts, sess, requests, calls = phase_serve(cfg, flush, dev, card,
-                                                                     args.profile, ab)
+        forward, default_counts, sess, requests, calls, serve_ms = phase_serve(
+            cfg, flush, dev, card, args.profile, ab)
         with align_env({}):
             phase_tiny()
         staged = phase_staged(calls, flush, ab_staged)
@@ -2544,6 +2606,8 @@ def main() -> int:
         loop_counts, loop_recs, loop_fwd_err, loop_val_recs, loop_stats = phase_train_loop(
             card, flush, train_stats["ms_per_step"])
         dp = phase_dp(card, eval_results, loop_stats)
+        fast_recs, fast_counts = phase_fast(card, flush, serve_ms)
+        closure_recs, closure_fwd_err, closure_counts = phase_closure(card, flush)
     except SmokeFailure as e:
         print(f"FAIL {e}", file=sys.stderr)
         return 1
@@ -2551,11 +2615,12 @@ def main() -> int:
     direct = kernel_record("roi_align", default_counts["roi_align"], forward)
     direct["max_abs_err"] = max([r["max_abs_err"]
                                  for r in synthetic + forward + eval_recs + demo_recs
-                                 + loop_val_recs]
-                                + [loop_fwd_err, dp["align_err"]])
+                                 + loop_val_recs + fast_recs]
+                                + [loop_fwd_err, dp["align_err"], closure_fwd_err])
     direct["calls"] += (kernel_record("roi_align", 0, eval_recs)["calls"]
                         + kernel_record("roi_align", 0, demo_recs)["calls"]
-                        + kernel_record("roi_align", 0, loop_val_recs)["calls"])
+                        + kernel_record("roi_align", 0, loop_val_recs)["calls"]
+                        + kernel_record("roi_align", 0, fast_recs)["calls"])
     launches = {"roi_align_tile": micro["roi_align_tile"],
                 "roi_align_band_tiered": paths["band tiered"]["roi_align_band_tiered"],
                 "roi_align_band_packed": micro["roi_align_band_packed"],
@@ -2566,8 +2631,10 @@ def main() -> int:
                                 and r["variant"] != "matmul t1 bf16"])
         for name, n in launches.items()]
     kernels[1]["max_abs_err"] = max(r["max_abs_err"]
-                                    for r in backward + train_recs + loop_recs + dp["recs"])
-    kernels[1]["calls"] += kernel_record("roi_align_backward", 0, loop_recs)["calls"]
+                                    for r in backward + train_recs + loop_recs + dp["recs"]
+                                    + closure_recs)
+    kernels[1]["calls"] += (kernel_record("roi_align_backward", 0, loop_recs)["calls"]
+                            + kernel_record("roi_align_backward", 0, closure_recs)["calls"])
     for rec in kernels:
         rec["attributes"] = attributes[by_name[rec["name"]]]
     # each path's own count, read just after it ran from counts set to 0
@@ -2576,11 +2643,17 @@ def main() -> int:
                                   "infer_imgs": demo_counts["roi_align"],
                                   "train": train_counts["roi_align"],
                                   "train_loop": loop_counts["roi_align"],
-                                  **{path: dp[path]["roi_align"] for path in DP_PATHS}}
+                                  **{path: dp[path]["roi_align"] for path in DP_PATHS},
+                                  **{f"serve {name}": c["roi_align"]
+                                     for name, c in fast_counts.items()},
+                                  **{f"closure {dtype}": c["roi_align"]
+                                     for dtype, c in closure_counts.items()}}
     kernels[1]["launches_by_path"] = {"train": train_counts["roi_align_backward"],
                                       "train_loop": loop_counts["roi_align_backward"],
                                       **{path: dp[path]["roi_align_backward"]
-                                         for path in DP_PATHS if path != "eval_nccl"}}
+                                         for path in DP_PATHS if path != "eval_nccl"},
+                                      **{f"closure {dtype}": c["roi_align_backward"]
+                                         for dtype, c in closure_counts.items()}}
     print(f"clocks {clocks_line()}", flush=True)
     print(f"seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

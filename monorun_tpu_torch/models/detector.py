@@ -618,9 +618,7 @@ class MonoRUn(nn.Module):
         diff = clip(torch.cat([yaw_diff[:, None], pnp.t_vec - pose_gt[:, :3]], 1), -1e6, 1e6)
         cc0 = pose_cov_calib.detach().reshape(npos, -1)
         cov_ok = torch.isfinite(cc0).all(-1) & (cc0.abs() < 1e18).all(-1)
-        safe_cov = torch.where(cov_ok[:, None, None], pose_cov_calib,
-                               torch.zeros_like(pose_cov_calib))
-        inv_cov = spd_inverse(safe_cov + eye)
+        inv_cov = calibration_inv_cov(pose_cov_calib, cov_ok)
         losses["loss_calib"] = kl_loss_mv(
             diff.detach(), 0, inv_cov, weight=(pose_ok & cov_ok)[:, None].float(),
         ) * pose.loss_calib_weight
@@ -642,17 +640,56 @@ class MonoRUn(nn.Module):
         return total, (losses, new_ema)
 
 
-def init_random_weights(model: MonoRUn, generator: torch.Generator) -> MonoRUn:
-    """Seeded random weights with the JAX package's serving-init rules:
-    every >= 2-D weight ~ N(0, 1/fan_in), biases and the calibration
-    scales zero, BatchNorm scale/variance one and shift/mean zero, and the
-    NOC head's latent decoder zero (its identity start)."""
+def calibration_inv_cov(pose_cov_calib: Tensor, cov_ok: Tensor) -> Tensor:
+    """The inverse covariance of the calibration loss: the JAX package's
+    ``spd_inverse(where(cov_ok, pose_cov_calib, 0) + I)``
+    (``monorun_tpu/models/detector.py:833-840``), the same values. A finite
+    but nearly singular covariance (a garbage PnP on a padded slot)
+    overflows the unrolled Cholesky: ``kl_loss_mv`` then gives its row 0,
+    but the inverse's backward at that matrix is still 0 x inf, and the
+    JAX package's calibration-scale gradient turns NaN. Here such rows
+    take the same non-finite inverse without a gradient, so every loss
+    value, and every gradient that is finite in the JAX package, is
+    unchanged."""
+    eye = torch.eye(4, device=pose_cov_calib.device)
+    safe = torch.where(cov_ok[:, None, None], pose_cov_calib, torch.zeros_like(pose_cov_calib))
+    inv0 = spd_inverse(safe.detach() + eye)
+    inv_ok = torch.isfinite(inv0.flatten(1)).all(-1)
+    safe = torch.where(inv_ok[:, None, None], safe, torch.zeros_like(safe))
+    return torch.where(inv_ok[:, None, None], spd_inverse(safe + eye), inv0)
+
+
+# the standard deviation of N(0, 1) truncated to [-2, 2]
+TRUNCATED_STD = 0.87962566103423978
+
+
+def truncated_normal(shape, generator: torch.Generator) -> Tensor:
+    """flax's ``lecun_normal`` draw before its 1/sqrt(fan_in): N(0, 1)
+    truncated to [-2, 2] (by the inverse CDF), rescaled to unit variance."""
+    lo = 0.5 * math.erfc(math.sqrt(2.0))                  # Phi(-2)
+    u = lo + (1.0 - 2.0 * lo) * torch.rand(shape, generator=generator,
+                                             dtype=torch.float64)
+    return (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0) / TRUNCATED_STD).float()
+
+
+def init_random_weights(model: MonoRUn, generator: torch.Generator,
+                        truncated: bool = False) -> MonoRUn:
+    """Seeded random weights with the JAX package's init rules: every >= 2-D
+    weight of variance 1/fan_in, biases and the calibration scales zero,
+    BatchNorm scale/variance one and shift/mean zero, and the NOC head's
+    latent decoder zero (its identity start). The weights are a normal
+    draw, as the JAX package's serving init makes them
+    (``_fast_init_variables``); ``truncated`` makes them flax's
+    ``lecun_normal`` (a normal truncated at two standard deviations), as
+    its training init does (``create_train_state``'s traced init)."""
     latent = model.roi_head.noc_head.latent_decoder.weight
+    draw = truncated_normal if truncated else (
+        lambda shape, generator: torch.randn(shape, generator=generator))
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p.dim() >= 2 and p is not latent:
                 fan_in = p[0].numel()
-                p.copy_(torch.randn(p.shape, generator=generator) / fan_in ** 0.5)
+                p.copy_(draw(p.shape, generator) / fan_in ** 0.5)
             elif name.endswith("weight") and p.dim() == 1:
                 p.fill_(1.0)                         # normalisation scales
             else:

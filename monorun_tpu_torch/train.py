@@ -208,14 +208,17 @@ def create_train_state(
     seed: int = 0,
 ) -> Tuple[MonoRUn, TrainState, AdamW]:
     """A model with seeded random weights (float32 parameters; the layers
-    compute in ``cfg.compute_dtype``), its train state and optimizer."""
+    compute in ``cfg.compute_dtype``), its train state and optimizer. The
+    weights follow the JAX package's training init (flax's traced init:
+    ``lecun_normal``, a truncated normal)."""
     from .apis.inference import resolve_device
 
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(config) if isinstance(config, str) else config
-    model = init_random_weights(MonoRUn(cfg), torch.Generator().manual_seed(seed)).to(device)
+    model = init_random_weights(MonoRUn(cfg), torch.Generator().manual_seed(seed),
+                                truncated=True).to(device)
     state = TrainState(step=0, loss_ema=torch.ones((), device=device))
     return model, state, make_optimizer(cfg, model, total_steps)
 

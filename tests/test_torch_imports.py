@@ -11,6 +11,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 import monorun_tpu_torch
 
 PKG = Path(monorun_tpu_torch.__file__).parent
@@ -69,3 +71,36 @@ def test_no_source_file_imports_jax_or_the_reference():
                 continue
             for m in mods:
                 assert m.split(".")[0] not in BLOCKED, f"{path}: imports {m}"
+
+
+CARD_SCRIPTS = ("chip_smoke.py", "tests/torch_e2e_closure.py", "tests/torch_parallel_child.py")
+
+
+@pytest.mark.parametrize("script", CARD_SCRIPTS)
+def test_card_scripts_import_neither_jax_nor_the_reference(script):
+    """The scripts that run on the card, where JAX is not installed: no
+    import statement names a blocked module, and the shared helpers import
+    in a fresh interpreter with the blocked names."""
+    path = PKG.parent / script
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for m in mods:
+            assert m.split(".")[0] not in BLOCKED, f"{script}: imports {m}"
+    if not script.startswith("tests/"):
+        return
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {str(path.parent)!r})\n"
+        f"import {path.stem}\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

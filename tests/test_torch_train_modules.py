@@ -163,6 +163,48 @@ def test_calibration_loss_through_the_loss_schedule():
     _close(tl, jl, 1e-5)
 
 
+# a PnP covariance caught on a padded slot of a training step: finite, and
+# so nearly singular that the unrolled Cholesky of it + I overflows
+NEAR_SINGULAR = np.array([
+    [660987328.0, 133372856.0, 20709664.0, -61281908.0],
+    [133372856.0, 27177912.0, 2809807.75, -17088098.0],
+    [20709652.0, 2809805.75, 7689557.5, 22369620.0],
+    [-61281960.0, -17088106.0, 22369618.0, 89478480.0]], np.float32) - np.eye(4, dtype=np.float32)
+
+
+@pytest.mark.parametrize("weight", [0.0, 0.01])
+def test_calibration_inverse_of_a_nearly_singular_covariance(weight):
+    """The calibration loss's inverse covariance (``calibration_inv_cov``)
+    on an ordinary and a nearly singular covariance: the JAX package's loss
+    values, and its gradient on the ordinary rows; where the JAX package's
+    gradient is NaN (the singular row, whose loss is 0), the port's is 0."""
+    from monorun_tpu.ops.linalg_small import spd_inverse as jinv
+    from monorun_tpu_torch.models.detector import calibration_inv_cov
+
+    rng = np.random.default_rng(5)
+    m = rng.normal(size=(2, 4, 4)).astype(np.float32)
+    cov = np.concatenate([m[:1] @ m[:1].transpose(0, 2, 1) + 0.1 * np.eye(4, dtype=np.float32),
+                          NEAR_SINGULAR[None],
+                          m[1:] @ m[1:].transpose(0, 2, 1) + 0.1 * np.eye(4, dtype=np.float32)])
+    diff = rng.normal(size=(3, 4)).astype(np.float32)
+    w = np.array([[1.0], [0.0], [1.0]], np.float32)
+    ok = np.ones(3, bool)
+
+    def jloss(c):
+        inv = jinv(jnp.where(jnp.asarray(ok)[:, None, None], c, 0.0) + jnp.eye(4))
+        return jlosses.kl_loss_mv(jnp.asarray(diff), 0, inv, weight=jnp.asarray(w)) * weight
+
+    jl, jg = jax.value_and_grad(jloss)(jnp.asarray(cov))
+    tc = _t(cov).requires_grad_()
+    tl = tlosses.kl_loss_mv(_t(diff), 0, calibration_inv_cov(tc, torch.from_numpy(ok)),
+                            weight=_t(w)) * weight
+    tg, = torch.autograd.grad(tl, tc)
+    _close(tl, jl, 1e-6)
+    assert not np.isfinite(np.asarray(jg)[1]).all()
+    assert torch.isfinite(tg).all() and not tg[1].any()
+    _close(tg[[0, 2]], np.asarray(jg)[[0, 2]], 1e-5)
+
+
 def test_classification_losses():
     rng = np.random.default_rng(4)
     logits = rng.normal(0, 4, (20, 4)).astype(np.float32)

@@ -71,3 +71,36 @@ def test_random_init_rules():
     bn = model.backbone.bn1
     assert (bn.weight == 1).all() and (bn.running_var == 1).all()
     assert not bn.bias.any() and not bn.running_mean.any()
+
+
+def test_training_init_is_flax_lecun_normal():
+    """``create_train_state`` draws as the JAX package's training init does
+    (flax's traced init, ``lecun_normal``: a normal truncated at two
+    standard deviations, rescaled to variance 1/fan_in); the serving init
+    stays a plain normal (``_fast_init_variables``)."""
+    import flax.linen as nn
+
+    from monorun_tpu_torch.models.detector import TRUNCATED_STD, truncated_normal
+    from monorun_tpu_torch.train import create_train_state
+
+    n = 200_000
+    got = truncated_normal((n,), torch.Generator().manual_seed(0)).double().numpy()
+    ref = np.asarray(nn.initializers.lecun_normal()(jax.random.PRNGKey(0), (1, n)),
+                     np.float64)[0]
+    edge = 2.0 / TRUNCATED_STD
+    for x in (got, ref):
+        assert np.abs(x).max() <= edge * (1 + 1e-6)
+        assert abs(x.std() - 1.0) < 0.01 and abs(x.mean()) < 0.01
+    q = (0.01, 0.1, 0.25, 0.5, 0.75, 0.9, 0.99)
+    np.testing.assert_allclose(np.quantile(got, q), np.quantile(ref, q), atol=0.02)
+
+    model, _, _ = create_train_state(tiny_config(tget_config), 10, device="cpu", seed=0)
+    latent = model.roi_head.noc_head.latent_decoder.weight
+    for name, p in model.named_parameters():
+        if p.dim() >= 2 and p is not latent:
+            bound = edge / p[0].numel() ** 0.5
+            assert float(p.detach().abs().max()) <= bound * (1 + 1e-6), name
+    serve = init_random_weights(MonoRUn(tiny_config(tget_config)),
+                                torch.Generator().manual_seed(0))
+    w = serve.backbone.layer3[0].conv2.weight.detach()
+    assert float(w.abs().max()) > edge / w[0].numel() ** 0.5
