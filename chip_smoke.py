@@ -4,9 +4,8 @@
 Run from the repository root:
 
     python3 chip_smoke.py                 # the whole check, one card
-    python3 chip_smoke.py --profile FILE  # also a torch.profiler breakdown
-                                          # of the serving forward; its
-                                          # full table goes to FILE
+    python3 chip_smoke.py --profile FILE  # phase 20's whole profiler table
+                                          # (tools.profile_trace) to FILE
     python3 chip_smoke.py --ab SOURCE     # also time another build of the
                                           # direct kernel's C interface
                                           # (an earlier roi_align.cu) in
@@ -185,17 +184,43 @@ Phases, each printing its own lines:
    direct launches a served batch, the first step's aligns forward and
    backward against the plain version (as in phase 10), the APs, steps
    and seconds of every training;
-19. a ``kernels`` JSON line (the registers and local memory bytes per
+19. the released-checkpoint parity runbook: a mini-KITTI of 8 random
+   375x1242 PNGs under ``KITTI_ROOT/training/`` (with
+   ``mono3dsplit_val_list.txt``) and a ``.pth`` of seeded random
+   kitti_multiclass weights under the reference key names (the RPN's and
+   the bbox head's box regressors scaled by 1e-2, so that the boxes stay
+   near their anchors and above KITTI's 25-pixel least height), then ``python
+   -m monorun_tpu_torch.tools.parity KITTI_ROOT CKPT --activations``
+   in-process at full width, batch 4: the deviations-OFF line, float32
+   weights, the dense stride-2 level, ``head_slots`` 0 and TF32 off in
+   effect; every torso stage (backbone, FPN, RPN) within 1e-3 of its std
+   of the plain-torch replica on the CPU (``tests/torch_ref``); exactly 3
+   direct-kernel launches per forward and none of another kernel; the
+   first batch's aligns (4000 proposals on the 192x640 level 0, 400
+   detections at 7x7 and 14x14) against the plain version with times;
+   the AP keys of the evaluator, finite; then again on labels made from
+   its own result files, where some AP is not 0; seconds, img/s and the
+   stage deviations;
+20. the profiling tools at full width: ``tools.profile_stages 8`` (the
+   stages sum within 15 % of the unsplit forward; one direct-kernel launch
+   in each of align_proposals, global_head_mc and noc_head and none
+   elsewhere), ``tools.flop_budget 1`` (the backbone within 10 % of
+   ResNet-101's 7.8 G multiply-adds at 224x224 scaled to 384x1280, 152.8
+   GFLOP per image) and ``tools.profile_trace 8`` (the stages hold at
+   least 90 % of its device time), each tool's tables printed: readings,
+   not claims;
+21. a ``kernels`` JSON line (the registers and local memory bytes per
    thread and dtype of the direct kernel, its backward and the four
    staged kernels, as the loaded build reports them, among their keys;
    local memory, a spill, fails the run; each path's launches of the
    direct kernel and its backward under ``launches_by_path``, the
    processes of phase 16 summed) and, last, the JSON result line.
 
-Every path (phases 4, 7, 8, 10, 12, 14, 15, each of 16's, each rung of 17
-and each closure of 18) runs with all launch counts set to 0 just before
-it and read just after (in the process that runs it); a kernel that its
-path did not launch fails the run.
+Every path (phases 4, 7, 8, 10, 12, 14, 15, each of 16's, each rung of 17,
+each closure of 18, both parity runs of 19 and each tool of 20) runs with
+all launch counts set to 0 just before it and read just after (in the
+process that runs it); a kernel that its path did not launch fails the
+run.
 
 Tolerances (kernel against plain version; both accumulate in float32):
 bfloat16 |d| <= 2^-7 |ref| + 1e-5 max(1, max|ref|), one bfloat16 rounding
@@ -243,6 +268,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import multiprocessing
@@ -270,7 +296,7 @@ from monorun_tpu_torch.config import get_config
 from monorun_tpu_torch.data.kitti import KITTI3DDataset
 from monorun_tpu_torch.data.loader import PrefetchLoader
 from monorun_tpu_torch.data.pipeline import (
-    collate, device_preprocess, load_image, prepare_test_sample, prepare_train_sample,
+    collate, load_image, prepare_test_sample, prepare_train_sample,
 )
 from monorun_tpu_torch.demo import infer_imgs
 from monorun_tpu_torch.eval import _native as kitti_native
@@ -288,7 +314,8 @@ from monorun_tpu_torch.ops import roi_align_band as rb
 from monorun_tpu_torch.ops import roi_align_cuda as rc
 from monorun_tpu_torch.ops import roi_align_tile as rt
 from monorun_tpu_torch.ops.roi_align_cuda import roi_align_kernel
-from monorun_tpu_torch.tools import micro_bench
+from monorun_tpu_torch.tools import flop_budget, micro_bench, profile_stages, profile_trace
+from monorun_tpu_torch.tools import parity as parity_tool
 from monorun_tpu_torch.tools import test as tools_test
 from monorun_tpu_torch.tools import train as tools_train
 from monorun_tpu_torch.tools.micro_bench import align_env, card_line, device_ms
@@ -308,13 +335,8 @@ KERNEL_SOURCE = "monorun_tpu_torch/csrc/roi_align.cu"
 REPLACES = ("monorun_tpu/ops/roi_align_band.py:57 (_band_kernel), "
             "monorun_tpu/ops/roi_align_sorted.py:99 (_sorted_kernel)")
 TOLERANCE = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (1e-5, 1e-5)}
-ALL_KERNELS = (roi_align_kernel, rc.roi_align_backward_kernel, *rc.STAGED_KERNELS)
-KERNEL_NAMES = {roi_align_kernel: "roi_align",
-                rc.roi_align_backward_kernel: "roi_align_backward",
-                rc.tile_kernel: "roi_align_tile",
-                rc.band_tiered_kernel: "roi_align_band_tiered",
-                rc.band_packed_kernel: "roi_align_band_packed",
-                rc.band_matmul_kernel: "roi_align_band_matmul"}
+ALL_KERNELS = tuple(rc.KERNELS.values())
+KERNEL_NAMES = {k: name for name, k in rc.KERNELS.items()}
 SOURCES = {"roi_align": KERNEL_SOURCE,
            "roi_align_backward": "monorun_tpu_torch/csrc/roi_align_bwd.cu",
            "roi_align_tile": "monorun_tpu_torch/csrc/roi_align_tile.cu",
@@ -591,7 +613,7 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    return {KERNEL_NAMES[k]: k.launches for k in ALL_KERNELS}
+    return rc.launch_counts()
 
 
 def check_recorded_aligns(what, recorded, cfg, flush, ab=()):
@@ -676,7 +698,7 @@ def check_launches(counts: dict, per_forward: dict, forwards: int, what: str) ->
                           f"expected {want}")
 
 
-def phase_serve(cfg, flush, dev, card, profile, ab=()):
+def phase_serve(cfg, flush, dev, card, ab=()):
     sess = init_inference("kitti_multiclass", batch_size=BATCH, device="cuda", seed=0,
                           raw=True)
     torch.cuda.reset_peak_memory_stats()
@@ -705,9 +727,6 @@ def phase_serve(cfg, flush, dev, card, profile, ab=()):
 
     recs, calls = check_recorded_aligns("forward", recorded, cfg, flush, ab)
     del recorded
-
-    if profile:
-        profile_serve(sess, requests[:3], ms, profile)
     return recs, counts, sess, requests, calls, ms
 
 
@@ -1309,55 +1328,6 @@ def phase_tiny_train():
         grad_max_err_of_scale=grad_rel[worst], worst_leaf=worst,
         zero_grad_leaves=sum(1 for v in cg.values() if not bool(v.any())),
         roi_path_share_of_rpn_reg_grad=dict(cpu=cshare, gpu=gshare))), flush=True)
-
-
-def profile_serve(sess, requests, ms_per_batch, table_path):
-    """Where a forward's time goes: wall time of its stages (host clock
-    around each, synchronised), device time by PyTorch op and of the
-    RoIAlign kernel (torch.profiler), kernel launches, and the device's
-    idle share of the unprofiled ms per batch."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    model, cfg = sess.model, sess.cfg
-    raw, cam, shapes = requests[0]
-
-    with torch.inference_mode():
-        images, img_shapes = device_preprocess(raw, shapes, cfg.data)
-        feats = model.extract_feats(images)
-        pad = (cfg.data.pad_height, cfg.data.pad_width)
-        stages = dict(
-            preprocess=wall_ms(lambda: device_preprocess(raw, shapes, cfg.data)),
-            backbone_neck=wall_ms(lambda: model.extract_feats(images)),
-            heads=wall_ms(lambda: model.heads_forward(
-                feats, cam, img_shapes, pad,
-                generator=torch.Generator(device=sess.device).manual_seed(0))),
-        )
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for req in requests:
-            sess.run(*req)
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-
-    def dev_ms(e):
-        t = getattr(e, "self_device_time_total", None)
-        return (e.self_cuda_time_total if t is None else t) / 1e3 / len(requests)
-
-    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    ops = [e for e in avgs if e.device_type == DeviceType.CPU and dev_ms(e) > 0]
-    busy = sum(dev_ms(e) for e in kernels)
-    align = sum(dev_ms(e) for e in kernels if "roi_align" in e.key)
-    table_path.parent.mkdir(parents=True, exist_ok=True)
-    table_path.write_text(avgs.table(sort_by="self_device_time_total", row_limit=80))
-    print("profile " + json.dumps(dict(
-        stage_ms=stages, forwards=len(requests),
-        device_ms_per_forward=busy, roi_align_ms_per_forward=align,
-        launches_per_forward=sum(e.count for e in kernels) / len(requests),
-        device_idle_share=1.0 - busy / ms_per_batch,
-        top_ops_device_ms=[[e.key, dev_ms(e), e.count / len(requests)]
-                           for e in sorted(ops, key=dev_ms, reverse=True)[:15]],
-    )), flush=True)
 
 
 # ---- tiny configuration, GPU against CPU ---------------------------------
@@ -1975,16 +1945,16 @@ def dp_config():
 def dp_model(cfg, device):
     """The model, train state and optimizer of phase 16's step, with the
     weights of the serving init (``init_random_weights``' plain normal,
-    seeded 0), not the training init's truncated normal. On the noise of
-    ``synthetic_train_batch`` some PnP rows at random weights are valid
-    but nearly degenerate, and their covariances amplify the rounding
-    that differs between a batch of 6 and two of 3 to percents. At the
-    serving init the score head's loss on them is next to nothing, so every
-    gradient is held across ranks at phase 11's tolerance; at the
-    training init that loss is larger, and the pose-norm weight's
-    gradient carries the amplified rounding (ROADMAP Queue 3). The score head's
-    gradient across ranks is held on the CPU instead, at the tiny
-    configuration (``tests/test_torch_parallel.py``)."""
+    seeded 0), not the training init's truncated normal. At the training
+    init the bbox head's last FCs round differently on the RoIs of a batch
+    of 6 and of 3 (about 1e-6), and the float32 PnP carries that to some
+    nearly degenerate rows' poses and covariances in full; a rank's rows
+    are those of one process on its half, bit for bit
+    (``tests/torch_dp_rows.py``, ROADMAP Queue 3 item 10). At the serving
+    init the score head's loss on such rows is next to nothing, so every
+    gradient is held across ranks at phase 11's tolerance. The score
+    head's gradient across ranks on the training init's rows is held on
+    the CPU (``tests/test_torch_parallel.py``, on rows captured here)."""
     model, state, opt = create_train_state(cfg, total_steps=1000, device=device, seed=0)
     init_random_weights(model, torch.Generator().manual_seed(0))
     return model, state, opt
@@ -2484,6 +2454,212 @@ def phase_closure(card, flush):
     return recs, fwd_err, counts_of
 
 
+# ---- the parity runbook on the card: tools.parity at full width ----------------------
+
+PARITY_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_parity"
+PARITY_IMAGES, PARITY_BATCH = 8, 4
+ACTIVATION_TOL = 1e-3         # of each stage's std, against the CPU replica
+PARITY_REG_SCALE = 1e-2       # the random .pth's box regressors, scaled
+PARITY_OFF = "[parity] deviations OFF: lazy_lower=False head_slots=0 dtype=float32"
+
+
+class Tee(io.TextIOBase):
+    """Writes to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.copy = out, io.StringIO()
+
+    def write(self, text):
+        self.copy.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_parity(argv, recorded):
+    """``python -m monorun_tpu_torch.tools.parity`` in-process under
+    ``recording_aligns``: (its result, its session, the launches, seconds,
+    ``run_eval``'s ms, what it printed)."""
+    sessions, eval_ms = [], []
+    tee = Tee(sys.stdout)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(align_env({}))
+        stack.enter_context(recording_aligns(recorded))
+        stack.enter_context(timed(parity_tool, "run_eval", eval_ms, sync=True))
+        stack.enter_context(patched(parity_tool, "init_inference",
+                                    keeping(init_inference, sessions)))
+        stack.enter_context(contextlib.redirect_stdout(tee))
+        reset_counts()
+        t0 = time.perf_counter()
+        out = parity_tool.main(argv)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    return out, sessions[0], counts, seconds, eval_ms[0], tee.copy.getvalue()
+
+
+def check_ap(ap, summary, what):
+    _, want = kitti_eval([], [], get_config("kitti_multiclass").data.classes)
+    check(list(ap) == list(want), f"{what}: the AP keys {sorted(ap)} are not the evaluator's")
+    check(all(math.isfinite(v) for v in ap.values()), f"{what}: an AP value is not finite")
+    check(json.loads(summary.read_text()) == ap, f"{what}: the summary file is not the AP dict")
+
+
+def phase_parity(card, flush):
+    """Phase 19 (the module docstring): ``tools.parity --activations`` on a
+    mini-KITTI with a ``.pth`` of seeded random kitti_multiclass weights,
+    then again on labels made from its own result files."""
+    shutil.rmtree(PARITY_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    training = PARITY_DIR / "kitti" / "training"
+    write_mini_kitti(training, PARITY_IMAGES, seed=41)
+    shutil.copy(training / "train_list.txt", training / "mono3dsplit_val_list.txt")
+    pth = PARITY_DIR / "random_kitti_multiclass.pth"
+    model = init_random_weights(MonoRUn(get_config("kitti_multiclass")),
+                                torch.Generator().manual_seed(3))
+    # random box regressors flatten the boxes below KITTI's 25-pixel least
+    # height, where every label made from them is ignored: scaled down, the
+    # boxes stay near their anchors
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith(("rpn_head.rpn_reg.", "roi_head.bbox_head.fc_reg.")):
+                p.mul_(PARITY_REG_SCALE)
+    torch.save({"state_dict": model.state_dict()}, pth)     # the reference key names
+    del model
+    results, summary = PARITY_DIR / "results", PARITY_DIR / "ap.json"
+    recorded = []
+    out, sess, counts, seconds, eval_ms, printed = run_parity(
+        [str(training.parent), str(pth), "--activations", "--batch-size", str(PARITY_BATCH),
+         "--result-dir", str(results), "--summary-file", str(summary)], recorded)
+    cfg = sess.cfg
+    check(PARITY_OFF in printed, "tools.parity did not print its deviations-OFF line")
+    check(cfg.compute_dtype == "float32" and cfg.neck.lazy_lower is False
+          and cfg.test.head_slots == 0, "tools.parity served another mode than float32, "
+          "the dense stride-2 level and every head slot")
+    check(all(p.dtype == torch.float32 for p in sess.model.parameters()),
+          "tools.parity's weights are not float32")
+    check(not (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32),
+          "TF32 is on in the parity run")
+    batches = -(-PARITY_IMAGES // PARITY_BATCH)
+    check_launches(counts, {"roi_align": 3}, batches, "parity (tools.parity --activations)")
+    rows = out["activations"]
+    check(len(rows) == 20 and rows[4][0] == "fpn P1 (stride 2)",
+          f"the activation diff has the stages {[r[0] for r in rows]}")
+    worst = max(rows, key=lambda r: r[2])
+    check(all(math.isfinite(r[2]) and r[2] <= ACTIVATION_TOL for r in rows),
+          f"parity: the stage {worst[0]} is {worst[2]} of its std from the CPU replica")
+    # the first batch's aligns: 4 x 1000 proposals on the dense stride-2 level
+    # 0, then 4 x max_per_img detections at 7x7 and 14x14
+    level0 = tuple(recorded[0][0][0].shape[1:3])
+    M = cfg.test.max_per_img
+    check(level0 == (cfg.data.pad_height // 2, cfg.data.pad_width // 2),
+          f"parity: the aligns' level 0 is {level0}, not the dense stride-2 map")
+    check([int(r[1].shape[0]) for r in recorded]
+          == [PARITY_BATCH * cfg.test.rpn_nms_post, PARITY_BATCH * M, PARITY_BATCH * M],
+          f"parity: the aligns had {[int(r[1].shape[0]) for r in recorded]} RoIs")
+    recs, _ = check_recorded_aligns("parity", recorded, cfg, flush)
+    del recorded
+    ap = out["ap"]
+    check_ap(ap, summary, "parity")
+    files = sorted(p.name for p in results.iterdir())
+    check(len(files) == PARITY_IMAGES, f"tools.parity wrote {len(files)} result files")
+
+    labelled = PARITY_DIR / "self" / "training"
+    shutil.copytree(training, labelled)
+    for name in files:
+        shutil.copy(results / name, labelled / "label_2" / name)
+    summary2 = PARITY_DIR / "ap_self.json"
+    out2, _, counts2, seconds2, eval_ms2, _ = run_parity(
+        [str(labelled.parent), str(pth), "--batch-size", str(PARITY_BATCH),
+         "--result-dir", str(PARITY_DIR / "results_self"), "--summary-file", str(summary2)],
+        [])
+    check_launches(counts2, {"roi_align": 3}, batches, "parity on its own labels")
+    check_ap(out2["ap"], summary2, "parity on its own labels")
+    print("parity " + json.dumps(dict(
+        config="kitti_multiclass parity (float32, dense stride-2 level, head_slots 0)",
+        card=card, images=PARITY_IMAGES, batch=PARITY_BATCH, tool_s=[seconds, seconds2],
+        run_eval_ms=[eval_ms, eval_ms2], img_per_s=PARITY_IMAGES * 1e3 / eval_ms,
+        stage_deviation_of_std={r[0]: r[2] for r in rows},
+        stage_max_abs={r[0]: r[1] for r in rows}, worst_stage=worst[0],
+        level0=list(level0), rois=[int(r["rois"]) for r in recs],
+        result_lines=[len((results / f).read_text().splitlines()) for f in files],
+        ap_max=max(ap.values()), ap_max_self_labels=max(out2["ap"].values()),
+        ap_nonzero_self_labels=sum(v > 0 for v in out2["ap"].values()),
+        phase_s=time.perf_counter() - t_phase)), flush=True)
+    check(max(out2["ap"].values()) > 0.0, "parity on labels made from its own results: "
+          "every AP is 0; its first result file begins "
+          + repr((results / files[0]).read_text()[:400]))
+    shutil.rmtree(PARITY_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(parity=counts, parity_self_labels=counts2), recs
+
+
+# ---- the profiling tools at full width -----------------------------------------------
+
+# ResNet-101's 7.8 G multiply-adds at 224x224, scaled to the 384x1280 pad
+BACKBONE_GFLOP = 2 * 7.8 * 384 * 1280 / 224 ** 2
+ALIGN_STAGES = ("align_proposals", "global_head_mc", "noc_head")
+
+
+def run_tool(main, argv, what):
+    """A tool's ``main`` in-process, its launches counted from 0."""
+    with align_env({}):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = main(argv)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    print(f"{what} took {seconds:.1f} s", flush=True)
+    return out, counts, seconds
+
+
+def phase_profile_tools(card, table):
+    """Phase 20 (the module docstring): ``tools.profile_stages`` at batch 8,
+    ``tools.flop_budget`` at batch 1 and ``tools.profile_trace`` at batch 8
+    (its whole table to ``table`` when given)."""
+    ladder, ladder_counts, ladder_s = run_tool(profile_stages.main, [str(BATCH)],
+                                               "profile_stages")
+    check_launches(ladder_counts, {"roi_align": 3},
+                   ladder["warmup"] + 2 * ladder["forwards"], "profile_stages")
+    for s in ladder["stages"]:
+        want = {"roi_align": 1} if s["stage"] in ALIGN_STAGES else {}
+        check(s["launches"] == want, f"profile_stages: the stage {s['stage']} launched "
+                                     f"{s['launches']}, expected {want}")
+    split = ladder["stage_sum_ms"] / ladder["unsplit_ms"]
+    check(abs(split - 1.0) <= 0.15, f"profile_stages: the stages sum to {split} of the "
+                                    "unsplit forward")
+
+    rows, flop_counts, flop_s = run_tool(flop_budget.main, ["1"], "flop_budget")
+    check_launches(flop_counts, {"roi_align": 3}, 1, "flop_budget")
+    backbone = rows[0][1] / 1e9
+    check(abs(backbone - BACKBONE_GFLOP) <= 0.1 * BACKBONE_GFLOP,
+          f"flop_budget: the backbone counts {backbone} GFLOP, expected about "
+          f"{BACKBONE_GFLOP}")
+
+    trace, trace_counts, trace_s = run_tool(
+        profile_trace.main, [str(BATCH), "40"] + (["--profile", str(table)] if table else []),
+        "profile_trace")
+    check_launches(trace_counts, {"roi_align": 3}, 1 + 5 + profile_trace.FORWARDS,
+                   "profile_trace")
+    check(trace["covered_share"] >= 0.9, f"profile_trace: the stages hold "
+                                         f"{trace['covered_share']} of the device time")
+    print("profile_tools " + json.dumps(dict(
+        config="kitti_multiclass", card=card, batch=BATCH,
+        ladder={s["stage"]: s["ms"] for s in ladder["stages"]},
+        ladder_unsplit_ms=ladder["unsplit_ms"], ladder_stage_sum_ms=ladder["stage_sum_ms"],
+        gflop_per_image={name: cum / 1e9 for name, cum, _ in rows},
+        backbone_gflop_expected=BACKBONE_GFLOP,
+        trace_ms_per_forward=trace["ms_per_forward"],
+        trace_launches_per_forward=trace["launches_per_forward"],
+        trace_stages={s["stage"]: [s["ms"], s["launches"]] for s in trace["stages"]},
+        trace_covered_share=trace["covered_share"], trace_unprofiled_ms=trace["unprofiled_ms"],
+        trace_idle_share=trace["idle_share"], seconds=[ladder_s, flop_s, trace_s])),
+        flush=True)
+    torch.cuda.empty_cache()
+    return dict(profile_stages=ladder_counts, flop_budget=flop_counts,
+                profile_trace=trace_counts)
+
+
 # ---- main ----------------------------------------------------------------
 
 
@@ -2498,12 +2674,16 @@ def kernel_record(name, launches, recs):
         ms=sum(r["ms"] for r in timed), plain_ms=sum(r["plain_ms"] for r in timed),
         bound_ms=sum(r["bound_ms"] for r in timed),
         bound_by=max(timed, key=lambda r: r["bound_ms"])["bound_by"],
-        library_ms=None,
-        calls=[{k: r[k] for k in ("call", "variant", "dtype", "rois", "out", "ms", "call_ms",
-                                  "plain_ms", "empty_ms", "bound_ms", "bound_by",
-                                  "bound_share", "max_abs_err")
-                if k in r} for r in recs],
+        library_ms=None, calls=call_records(recs),
     )
+
+
+def call_records(recs):
+    """The kernels line's record of each compared call."""
+    return [{k: r[k] for k in ("call", "variant", "dtype", "rois", "out", "ms", "call_ms",
+                               "plain_ms", "empty_ms", "bound_ms", "bound_by", "bound_share",
+                               "max_abs_err")
+             if k in r} for r in recs]
 
 
 def clocks_line() -> str:
@@ -2518,7 +2698,7 @@ def clocks_line() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="FILE",
-                    help="profile the serving forward; write the table to FILE")
+                    help="write phase 20's whole profiler table (tools.profile_trace) to FILE")
     ap.add_argument("--ab", metavar="[NAME=]SOURCE", action="append", default=[],
                     help="also time SOURCE, another build of kernel NAME's C interface "
                          "(a name of the kernels line; default roi_align, the direct "
@@ -2582,7 +2762,7 @@ def main() -> int:
         with align_env({}):
             synthetic = phase_kernel(cfg, flush, dev, ab)
         forward, default_counts, sess, requests, calls, serve_ms = phase_serve(
-            cfg, flush, dev, card, args.profile, ab)
+            cfg, flush, dev, card, ab)
         with align_env({}):
             phase_tiny()
         staged = phase_staged(calls, flush, ab_staged)
@@ -2608,6 +2788,8 @@ def main() -> int:
         dp = phase_dp(card, eval_results, loop_stats)
         fast_recs, fast_counts = phase_fast(card, flush, serve_ms)
         closure_recs, closure_fwd_err, closure_counts = phase_closure(card, flush)
+        parity_counts, parity_recs = phase_parity(card, flush)
+        tool_counts = phase_profile_tools(card, args.profile)
     except SmokeFailure as e:
         print(f"FAIL {e}", file=sys.stderr)
         return 1
@@ -2615,12 +2797,10 @@ def main() -> int:
     direct = kernel_record("roi_align", default_counts["roi_align"], forward)
     direct["max_abs_err"] = max([r["max_abs_err"]
                                  for r in synthetic + forward + eval_recs + demo_recs
-                                 + loop_val_recs + fast_recs]
+                                 + loop_val_recs + fast_recs + parity_recs]
                                 + [loop_fwd_err, dp["align_err"], closure_fwd_err])
-    direct["calls"] += (kernel_record("roi_align", 0, eval_recs)["calls"]
-                        + kernel_record("roi_align", 0, demo_recs)["calls"]
-                        + kernel_record("roi_align", 0, loop_val_recs)["calls"]
-                        + kernel_record("roi_align", 0, fast_recs)["calls"])
+    direct["calls"] += call_records(eval_recs + demo_recs + loop_val_recs + fast_recs
+                                    + parity_recs)
     launches = {"roi_align_tile": micro["roi_align_tile"],
                 "roi_align_band_tiered": paths["band tiered"]["roi_align_band_tiered"],
                 "roi_align_band_packed": micro["roi_align_band_packed"],
@@ -2633,8 +2813,7 @@ def main() -> int:
     kernels[1]["max_abs_err"] = max(r["max_abs_err"]
                                     for r in backward + train_recs + loop_recs + dp["recs"]
                                     + closure_recs)
-    kernels[1]["calls"] += (kernel_record("roi_align_backward", 0, loop_recs)["calls"]
-                            + kernel_record("roi_align_backward", 0, closure_recs)["calls"])
+    kernels[1]["calls"] += call_records(loop_recs + closure_recs)
     for rec in kernels:
         rec["attributes"] = attributes[by_name[rec["name"]]]
     # each path's own count, read just after it ran from counts set to 0
@@ -2647,7 +2826,9 @@ def main() -> int:
                                   **{f"serve {name}": c["roi_align"]
                                      for name, c in fast_counts.items()},
                                   **{f"closure {dtype}": c["roi_align"]
-                                     for dtype, c in closure_counts.items()}}
+                                     for dtype, c in closure_counts.items()},
+                                  **{path: c["roi_align"]
+                                     for path, c in {**parity_counts, **tool_counts}.items()}}
     kernels[1]["launches_by_path"] = {"train": train_counts["roi_align_backward"],
                                       "train_loop": loop_counts["roi_align_backward"],
                                       **{path: dp[path]["roi_align_backward"]

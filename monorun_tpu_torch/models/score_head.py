@@ -75,9 +75,9 @@ class ScoreHead(nn.Module):
     def forward(self, reg_fc_out: Tensor, yaw: Tensor, t_vec: Tensor,
                 pose_cov: Tensor, dimensions: Tensor, train: bool = False,
                 valid: Optional[Tensor] = None) -> Tensor:
-        """(n, F), (n, 1), (n, 3), (n, 4, 4), (n, 3) -> logits (n,) float32;
-        ``valid`` (n,) keeps padded rows out of the statistics' update and
-        zeroes their inputs."""
+        """(n, F), (n, 1), (n, 3), (n, 4, 4), (n, 3) -> logits (n,) float32
+        (float64 in a float64 head); ``valid`` (n,) keeps padded rows out
+        of the statistics' update and zeroes their inputs."""
         ix, iy = torch.tril_indices(4, 4, device=pose_cov.device)
         x = torch.cat([yaw, t_vec, pose_cov[:, ix, iy], dimensions], dim=1).detach()
         if valid is not None:
@@ -88,7 +88,8 @@ class ScoreHead(nn.Module):
         x = F.relu(self.pose_fcs[0](x.to(dt)))
         x = x + reg_fc_out
         x = F.relu(self.fused_fcs[0](x))
-        return self.fc_out(x)[:, 0].float()
+        logits = self.fc_out(x)[:, 0]
+        return logits.to(torch.promote_types(logits.dtype, torch.float32))
 
 
 def score_targets(cfg: ScoreHeadConfig, ious: Tensor) -> Tensor:

@@ -818,3 +818,11 @@ band_matmul_kernel = StagedKernel("band_matmul", "roi_align_mma",
                                   _BUFS + [_P] * 7 + [_P] * 3 + [_I] * 7 + [_P])
 
 STAGED_KERNELS = (tile_kernel, band_tiered_kernel, band_packed_kernel, band_matmul_kernel)
+# every kernel under its name on ``chip_smoke.py``'s kernels line
+KERNELS = {"roi_align": roi_align_kernel, "roi_align_backward": roi_align_backward_kernel,
+           **{f"roi_align_{k.name}": k for k in STAGED_KERNELS}}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's ``launches``, by its name in ``KERNELS``."""
+    return {name: k.launches for name, k in KERNELS.items()}

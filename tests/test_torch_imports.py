@@ -28,7 +28,8 @@ def test_port_imports_with_jax_and_reference_blocked():
                  "apis.test", "utils.visualizer", "tools.test", "tools.prepare_kitti",
                  "demo", "demo.infer_imgs", "demo.infer_webcam", "apis.train",
                  "utils.checkpoint", "tools.train", "parallel", "parallel.mesh",
-                 "parallel.gather"):
+                 "parallel.gather", "utils.stages", "tools.parity", "tools.profile_stages",
+                 "tools.flop_budget", "tools.profile_trace"):
         assert f"monorun_tpu_torch.{name}" in names, name
     code = (
         "import sys\n"

@@ -24,6 +24,14 @@ batch-wide reduction is also checked alone (``run_units``). A negative
 control runs the ranks again with ``global_sum`` set to the identity: the
 comparison must then fail.
 
+(b') The score head (``ScoreHead`` itself, seeded weights) on the score
+rows of the full-width kitti_multiclass step at the training init, as the
+card gave them (``tests/data/dp_score_rows.npz``, the 23 valid rows of 768,
+written by ``tests/torch_dp_rows.py``; covariance entries up to 44392):
+each rank on its rows against one process on all of them, in float64 and
+in float32: the loss and the gradients summed over the ranks, and the
+pose norm's running statistics.
+
 (c) ``run_eval(distributed=True)`` at 2 ranks on a 5-image mini-KITTI at
 ``test_torch_eval_path.py``'s tiny configuration (random weights): every
 index gathered once; each rank's results bitwise equal to a one-process
@@ -43,6 +51,8 @@ float32 carry the convolutions' last-bit differences between a batch of
 2 and of 4 to 1e-4 relative in the pose and covariance, at world size 1
 too; ``test_torch_train_step.py`` allows the same against JAX; alone, on
 the same inputs, the statistics agree to 1e-6 below);
+the score head on the captured rows to 1e-9 of each leaf's scale in
+float64 and 1e-4 in float32 (the global moments' sums in another order);
 the parameters after one AdamW step as ``test_torch_train_step.py`` states
 (Adam's first step turns the summation-order noise of near-zero gradients
 into up to +-lr); the unit reductions to 1e-6 relative; equality across
@@ -81,10 +91,12 @@ from test_torch_eval_path import TINY_OPTIONS, configs
 from test_torch_train_entry import TINY_OPTIONS as TRAIN_OPTIONS
 from test_torch_train_loop import cpu_share, write_small_kitti  # noqa: F401
 from test_torch_train_step import tiny_train_config
-from torch_parallel_child import gather_cases, run_step, run_units
+from torch_parallel_child import gather_cases, run_step, run_units, score_head_on_rows
 
 REPO = Path(__file__).resolve().parents[1]
 CHILD = Path(__file__).resolve().parent / "torch_parallel_child.py"
+SCORE_ROWS = Path(__file__).resolve().parent / "data" / "dp_score_rows.npz"
+SCORE_DTYPES = {"torch.float64": 1e-9, "torch.float32": 1e-4}
 WORLD = 2
 B, H, W = 4, 64, 128            # the global batch: 2 images per rank
 EVAL_IMAGES, EVAL_BATCH = 5, 2  # shards of 3 and 2 images: the second rank pads one
@@ -143,8 +155,11 @@ def make_job(tmp: Path, threads: int):
     make_mini_kitti(str(root), n_images=EVAL_IMAGES, seed=1)
     _, ecfg = configs()
     emodel = init_random_weights(MonoRUn(ecfg), torch.Generator().manual_seed(3))
+    with np.load(SCORE_ROWS) as f:
+        rows = {k: torch.from_numpy(v) for k, v in f.items()}
     return dict(threads=threads, sd=model.state_dict(), steps=steps, units=unit_inputs(),
                 score_cfg=cfg.score_head,
+                score_rows=dict(rows=rows, cfg=tget_config("kitti_multiclass").score_head),
                 eval=dict(cfg=ecfg, sd=emodel.state_dict(), root=str(root), batch=EVAL_BATCH))
 
 
@@ -187,6 +202,9 @@ def ranks(tmp_path_factory):
         ref = {name: run_step(c["cfg"], job["sd"], c["batch"], c["draws"])
                for name, c in job["steps"].items()}
         units = run_units(job["units"], job["score_cfg"])
+        rows = job["score_rows"]
+        score_rows = {str(d): score_head_on_rows(rows["rows"], rows["cfg"], d)
+                      for d in (torch.float64, torch.float32)}
         shard_runs = [one_process_eval(job["eval"], lambda n, r=r: parallel.dataset_shard(
             n, r, WORLD)) for r in range(WORLD)]
         outs = [p.communicate(timeout=TIMEOUT)[0] for p in procs]
@@ -202,7 +220,8 @@ def ranks(tmp_path_factory):
     print(f"two ranks and the references: {time.perf_counter() - t0:.1f} s")
     got = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
     grads = torch.load(tmp / "rank0_grads.pt", weights_only=False)
-    return dict(job=job, ref=ref, units=units, ranks=got, grads=grads, shard_runs=shard_runs)
+    return dict(job=job, ref=ref, units=units, ranks=got, grads=grads, shard_runs=shard_runs,
+                score_rows=score_rows)
 
 
 def _rel(got, ref):
@@ -349,6 +368,21 @@ def _unit_error(k, per_rank, ref):
 def test_each_batch_wide_reduction_matches(ranks, key):
     err = _unit_errors(ranks, "units")[key]
     assert err <= 1e-6, (key, err)
+
+
+@pytest.mark.parametrize("dtype", SCORE_DTYPES)
+def test_score_head_on_captured_rows_matches_one_process(ranks, dtype):
+    """The card's ill-conditioned score rows: every rank holds the one
+    process's loss, gradients and running statistics."""
+    ref = ranks["score_rows"][dtype]
+    rows = ranks["job"]["score_rows"]["rows"]
+    assert [int((rows["rank"] == r).sum()) for r in range(WORLD)] == [10, 13]
+    assert float(rows["pose_cov"].abs().max()) > 4e4
+    for r, got in enumerate(rank["score_rows"][dtype] for rank in ranks["ranks"]):
+        errs = {n: _rel(got["grads"][n], g) for n, g in ref["grads"].items()}
+        errs.update({k: _rel(got[k], ref[k]) for k in ("loss", "running_mean", "running_var")})
+        print(f"rank {r} {dtype}: the score head within {max(errs.values()):.3g} of its scale")
+        assert max(errs.values()) <= SCORE_DTYPES[dtype], (r, errs)
 
 
 def test_negative_control_without_global_sums_fails(ranks):

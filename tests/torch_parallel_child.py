@@ -20,9 +20,12 @@ import numpy as np
 import torch
 
 from monorun_tpu_torch import train as ttrain
-from monorun_tpu_torch.losses import robust_kl_loss, smooth_l1_loss
+from monorun_tpu_torch.losses import robust_kl_loss, sigmoid_bce_loss, smooth_l1_loss
 from monorun_tpu_torch.models.detector import MonoRUn
-from monorun_tpu_torch.models.score_head import BatchNormSmooth, iou3d_balanced_sample_weights
+from monorun_tpu_torch.models.score_head import (
+    BatchNormSmooth, ScoreHead, iou3d_balanced_sample_weights,
+)
+from monorun_tpu_torch.parallel import all_reduce_sum
 
 
 def run_step(cfg, sd, batch, draws) -> Dict[str, object]:
@@ -78,6 +81,30 @@ def run_units(u, score_cfg) -> Dict[str, torch.Tensor]:
     out["sampler"] = iou3d_balanced_sample_weights(score_cfg, u["ious"], u["uniform"],
                                                    valid=u["valid"])
     return out
+
+
+def score_head_on_rows(rows, cfg, dtype, rank=None) -> Dict[str, object]:
+    """``ScoreHead`` itself (weights seeded 0) in ``dtype`` on captured score
+    rows, its training forward and loss as ``train_forward`` runs them: the
+    loss and the parameters' gradients summed over the ranks, and the pose
+    norm's running statistics after its update. With ``rank``, that rank's
+    rows alone."""
+    torch.manual_seed(0)
+    head = ScoreHead(cfg).to(dtype)
+    if rank is not None:
+        rows = {k: v[rows["rank"] == rank] for k, v in rows.items()}
+    x = {k: v.to(dtype) for k, v in rows.items() if k != "rank"}
+    n = x["yaw"].shape[0]
+    logits = head(x["reg_fc_out"], x["yaw"], x["t_vec"], x["pose_cov"], x["dimensions"],
+                  train=True, valid=torch.ones(n, dtype=torch.bool))
+    loss = sigmoid_bce_loss(logits[:, None], x["targets"][:, None],
+                            weight=x["weight"][:, None], avg_factor=n)
+    params = dict(head.named_parameters())
+    total, *grads = all_reduce_sum([loss.detach(),
+                                    *torch.autograd.grad(loss, list(params.values()))])
+    norm = head.pose_norm
+    return dict(loss=total, grads=dict(zip(params, grads)),
+                running_mean=norm.running_mean.clone(), running_var=norm.running_var.clone())
 
 
 def same_on_every_rank(tensors) -> bool:
@@ -145,6 +172,9 @@ def main(job_path, rank, world, port, out_dir):
 
     units = shard_batch(job["units"], rank, world)
     out["units"] = run_units(units, job["score_cfg"])
+    rows = job["score_rows"]
+    out["score_rows"] = {str(d): score_head_on_rows(rows["rows"], rows["cfg"], d, rank)
+                         for d in (torch.float64, torch.float32)}
     steps, grads = {}, {}
     for name, case in job["steps"].items():
         got = run_step(case["cfg"], job["sd"], shard_batch(case["batch"], rank, world),
