@@ -209,18 +209,39 @@ Phases, each printing its own lines:
    GFLOP per image) and ``tools.profile_trace 8`` (the stages hold at
    least 90 % of its device time), each tool's tables printed: readings,
    not claims;
-21. a ``kernels`` JSON line (the registers and local memory bytes per
+21. the cold start: ``python -m monorun_tpu_torch.tools.cold_profile 8``
+   in four processes, one after another, under the git-ignored
+   ``build/`` (``--cache-dir``): on one fresh builds' root (i) cold, (ii)
+   again, now cached, (iii) ``--warm`` (``init_inference(warm=True)``),
+   then (iv) ``--warm`` on a second fresh root, where the warm-up's
+   build overlaps the weights' init; every mark of each, ``warm_start``'s
+   pieces and the ``nvcc`` jobs each started, beside phase 2's build of
+   every library. The run fails if (i) or (iv) builds another library
+   than those of the kernels its requests launched, if (ii) or (iii)
+   starts an ``nvcc`` job, if (iii)'s or (iv)'s first request starts a
+   build, if a run's two requests do not launch the direct kernel
+   exactly 3 times each, or if (iii)'s or (iv)'s first request gives
+   other validity masks or labels than (i)'s (the same weights, inputs
+   and seed, unwarmed) or results outside phase 5's tolerances; the
+   times are readings;
+22. a ``kernels`` JSON line (the registers and local memory bytes per
    thread and dtype of the direct kernel, its backward and the four
    staged kernels, as the loaded build reports them, among their keys;
    local memory, a spill, fails the run; each path's launches of the
    direct kernel and its backward under ``launches_by_path``, the
-   processes of phase 16 summed) and, last, the JSON result line.
+   processes of phase 16 summed, phase 21's requests under
+   ``cold_start`` and every session's warm-up under ``warm_start``) and,
+   last, the JSON result line.
 
 Every path (phases 4, 7, 8, 10, 12, 14, 15, each of 16's, each rung of 17,
-each closure of 18, both parity runs of 19 and each tool of 20) runs with
-all launch counts set to 0 just before it and read just after (in the
-process that runs it); a kernel that its path did not launch fails the
-run.
+each closure of 18, both parity runs of 19, each tool of 20 and each run
+of 21) runs with all launch counts set to 0 just before it and read just
+after (in the process that runs it); a kernel that its path did not
+launch fails the run. A session built on the card warms itself
+(``utils/warm_start.py``: one forward, 3 launches of the direct kernel);
+those launches, checked at each warm-up, move from the kernels' counts to
+``warm_start``'s (``warm_apart``), so that a path whose session is built
+inside its count window counts its own requests.
 
 Tolerances (kernel against plain version; both accumulate in float32):
 bfloat16 |d| <= 2^-7 |ref| + 1e-5 max(1, max|ref|), one bfloat16 rounding
@@ -289,6 +310,7 @@ from monorun_tpu_torch.apis.inference import (
     InferenceSession, detections_to_host, init_inference, upload,
 )
 from monorun_tpu_torch import parallel
+from monorun_tpu_torch.apis import inference as apis_inference
 from monorun_tpu_torch import train as ttrain
 from monorun_tpu_torch.apis import train as apis_train
 from monorun_tpu_torch.apis.test import run_eval
@@ -309,6 +331,7 @@ from monorun_tpu_torch.utils import checkpoint as ckpt
 from monorun_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from monorun_tpu_torch.utils.draws import train_draws
 from monorun_tpu_torch.utils.synthetic import synthetic_train_batch
+from monorun_tpu_torch.utils.warm_start import serving_stems
 from monorun_tpu_torch.ops import roi_align as ra
 from monorun_tpu_torch.ops import roi_align_band as rb
 from monorun_tpu_torch.ops import roi_align_cuda as rc
@@ -689,6 +712,31 @@ def serve_requests(sess, requests, record=False):
     finally:
         model._align = align
     return times, dets, recorded
+
+
+WARM_LAUNCHES = dict.fromkeys(rc.KERNELS, 0)
+WARM_FORWARD = {"roi_align": 3}       # one serving forward's launches
+
+
+def warm_apart() -> None:
+    """Wraps ``InferenceSession``'s warm-up (``utils/warm_start.py``) in this
+    process: each warm-up must launch the direct kernel 3 times (its one
+    forward) and no other kernel, and its launches move from the kernels'
+    counts to ``WARM_LAUNCHES``."""
+    real = apis_inference.warm_start
+
+    def warm_start(*args, **kw):
+        before = read_counts()
+        seconds = real(*args, **kw)
+        got = {k: v - before[k] for k, v in read_counts().items()}
+        want = {k: WARM_FORWARD.get(k, 0) for k in got}
+        check(got == want, f"a session's warm-up launched {got}, expected {want}")
+        for name, k in rc.KERNELS.items():
+            WARM_LAUNCHES[name] += got[name]
+            k.launches = before[name]
+        return seconds
+
+    apis_inference.warm_start = warm_start
 
 
 def check_launches(counts: dict, per_forward: dict, forwards: int, what: str) -> None:
@@ -1403,18 +1451,27 @@ def phase_tiny(cfg=None, what="tiny"):
             check(roi_align_kernel.launches == before + 3,
                   f"the {what} GPU forward did not run the kernel 3 times")
     cpu, gpu = out["cpu"], out["cuda"]
-    check(torch.equal(cpu.labels, gpu.labels), f"{what} config: labels differ GPU vs CPU")
-    check(torch.equal(cpu.valid, gpu.valid), f"{what} config: validity differs GPU vs CPU")
+    errs = compare_detections(gpu._asdict(), cpu._asdict(), f"{what} config, GPU vs CPU")
+    print(f"{what} " + json.dumps(dict(valid=int(cpu.valid.sum()),
+                                      rel_err_of_scale=errs)), flush=True)
+
+
+def compare_detections(got: dict, ref: dict, what: str) -> dict:
+    """Phase 5's tolerances: labels and validity masks equal, 2D outputs to
+    1e-4 and 3D outputs to 1e-3 of their scale (8 LM iterations compound
+    float32 rounding). Returns each output's largest error over its
+    scale."""
+    check(torch.equal(ref["labels"], got["labels"]), f"{what}: labels differ")
+    check(torch.equal(ref["valid"], got["valid"]), f"{what}: validity differs")
     errs = {}
     for name, rtol in (("bboxes_2d", 1e-4), ("scores_2d", 1e-4), ("bboxes_3d", 1e-3),
                        ("pose_cov", 1e-3)):
-        a, b = getattr(gpu, name).double(), getattr(cpu, name).double()
+        a, b = got[name].double(), ref[name].double()
         scale = float(b.abs().max().clamp(min=1e-6))
         errs[name] = float((a - b).abs().max()) / scale
         check(bool(((a - b).abs() <= rtol * b.abs() + rtol * scale).all()),
-              f"{what} config: {name} differs GPU vs CPU (max error {errs[name]} of scale)")
-    print(f"{what} " + json.dumps(dict(valid=int(cpu.valid.sum()),
-                                      rel_err_of_scale=errs)), flush=True)
+              f"{what}: {name} differs (max error {errs[name]} of scale)")
+    return errs
 
 
 def to_cpu(det):
@@ -2118,7 +2175,9 @@ def dp_nccl(port, loop_root, eval_root):
     --distributed`` (bf16, batch 3, 2 steps, a checkpoint and a validation)
     on phase 15's mini-KITTI, the NCCL collectives the layer uses on the
     card, and ``tools.test --distributed`` (batch 4) on phase 12's, whose
-    results go to ``DP_DIR/nccl_eval.pt``. Writes ``DP_DIR/nccl.json``."""
+    results go to ``DP_DIR/nccl_eval.pt``. Writes ``DP_DIR/nccl.json``, with
+    the warm-ups' launches (``warm_apart``)."""
+    warm_apart()
     rc.build_all()
     work = DP_DIR / "nccl_work"
     out = {}
@@ -2165,6 +2224,7 @@ def dp_nccl(port, loop_root, eval_root):
         out["eval_s"] = time.perf_counter() - t0
         out["eval_launches"] = read_counts()
     torch.save(datasets[0].results, DP_DIR / "nccl_eval.pt")
+    out["warm_launches"] = WARM_LAUNCHES
     (DP_DIR / "nccl.json").write_text(json.dumps(out))
 
 
@@ -2299,6 +2359,8 @@ def phase_dp(card, eval_results, loop_stats):
     spawn_ranks(dp_nccl, [(free_port(), loop_root, eval_root)], "the NCCL rank")
     nccl_s = time.perf_counter() - t0
     nc = json.loads((DP_DIR / "nccl.json").read_text())
+    for name, n in nc["warm_launches"].items():
+        WARM_LAUNCHES[name] += n
     n_val = -(-LOOP_VAL // VAL_BATCH)
     check_launches(nc["train_launches"], {"roi_align": 3 * (2 + n_val),
                                           "roi_align_backward":
@@ -2660,6 +2722,113 @@ def phase_profile_tools(card, table):
                 profile_trace=trace_counts)
 
 
+# ---- the cold start: tools.cold_profile in fresh processes ---------------------
+
+COLD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cold"
+COLD_TIMEOUT_S = 240          # one run of the tool
+# (run, its builds' root under COLD_DIR, its extra arguments)
+COLD_RUNS = (("cold", "cache", []), ("cached", "cache", []), ("warm", "cache", ["--warm"]),
+             ("fresh_warm", "cache_fresh_warm", ["--warm"]))
+WARMED = ("warm", "fresh_warm")
+
+
+def launched_libraries(launches):
+    """The sources (``csrc/<stem>.cu``) of the kernels with launches in
+    ``launches``, sorted."""
+    libs = {"roi_align": "roi_align", "roi_align_backward": "roi_align_bwd"}
+    return sorted({libs.get(name) or rc.KERNELS[name].lib
+                   for name, n in launches.items() if n})
+
+
+def cold_run(what, argv):
+    """``python -m monorun_tpu_torch.tools.cold_profile`` in a fresh
+    process with the align settings unset; its lines are printed, and the
+    figures of its ``cold_profile`` line returned."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MONORUN_ALIGN", "MONORUN_BAND", "MONORUN_TORCH_CACHE"))}
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", "monorun_tpu_torch.tools.cold_profile",
+                               *argv], cwd=Path(__file__).resolve().parent, env=env,
+                              capture_output=True, text=True, timeout=COLD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"cold_profile {what} outlived {COLD_TIMEOUT_S} s") from None
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith("cold_profile "):
+            print(f"cold_start {what} {line}", flush=True)
+    check(proc.returncode == 0, f"cold_profile {what} exited with {proc.returncode}:\n"
+                                f"{proc.stderr[-3000:]}")
+    out = json.loads([ln for ln in lines if ln.startswith("cold_profile ")][-1][13:])
+    out["process_s"] = seconds
+    return out
+
+
+def phase_cold_start(card, build_all_s):
+    """Phase 21 (the module docstring): the cold, cached and warm runs of
+    ``tools.cold_profile`` on one fresh builds' root, and a warm run on a
+    second. Returns the direct kernel's launches in their requests."""
+    shutil.rmtree(COLD_DIR, ignore_errors=True)
+    COLD_DIR.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    serving = list(serving_stems(get_config("kitti_multiclass"), BATCH))
+    runs = {}
+    for what, root, extra in COLD_RUNS:
+        runs[what] = cold_run(what, [str(BATCH), "--cache-dir", str(COLD_DIR / root),
+                                     "--save", str(COLD_DIR / f"{what}.pt"), *extra])
+    cold, cached, fresh_warm = runs["cold"], runs["cached"], runs["fresh_warm"]
+    launched = launched_libraries(cold["launches"])
+    for what in ("cold", "fresh_warm"):
+        check(sorted(runs[what]["nvcc_jobs"]) == launched,
+              f"cold_profile {what}: nvcc built {runs[what]['nvcc_jobs']}, its requests "
+              f"launched the kernels of {launched}")
+    for what in ("cached", "warm"):
+        check(runs[what]["nvcc_jobs"] == [], f"cold_profile {what}: nvcc built "
+                                             f"{runs[what]['nvcc_jobs']} in a populated root")
+    for what, out in runs.items():
+        check_launches(out["launches"], {"roi_align": 3}, 2, f"cold_profile {what}")
+    first = {"cold": torch.load(COLD_DIR / "cold.pt")}
+    errs, bit_equal = {}, {}
+    for what in WARMED:
+        out = runs[what]
+        check(out["first_request_nvcc_jobs"] == 0, f"cold_profile {what}: the first "
+                                                   f"request built")
+        check(out["warm_launches"] == {k: WARM_FORWARD.get(k, 0) for k in rc.KERNELS},
+              f"cold_profile {what}: the warm-up launched {out['warm_launches']}")
+        for name, n in out["warm_launches"].items():
+            WARM_LAUNCHES[name] += n
+        first[what] = torch.load(COLD_DIR / f"{what}.pt")
+        errs[what] = compare_detections(first[what], first["cold"],
+                                        f"cold_profile {what}: the warm session's first "
+                                        f"request against the unwarmed one's")
+        bit_equal[what] = all(torch.equal(first[what][k], first["cold"][k])
+                              for k in first["cold"])
+
+    def marks(out):
+        return {m["mark"]: m["s"] for m in out["marks"]}
+
+    shutil.rmtree(COLD_DIR, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    print("cold_start " + json.dumps(dict(
+        config="kitti_multiclass", card=card, batch=BATCH, serving_stems=serving,
+        marks={what: marks(out) for what, out in runs.items()},
+        totals={what: out["marks"][-1]["total_s"] for what, out in runs.items()},
+        process_s={what: out["process_s"] for what, out in runs.items()},
+        nvcc_jobs={what: out["nvcc_jobs"] for what, out in runs.items()},
+        serving_build_s=marks(cold)["kernel build"], cached_load_s=marks(cached)["kernel build"],
+        all_libraries_build_s=build_all_s,
+        warm_start={what: runs[what]["warm_seconds"] for what in WARMED},
+        warm_first_request_s={what: marks(runs[what])["first request"] for what in WARMED},
+        fresh_warm_overlap_s=fresh_warm["warm_seconds"]["build"]
+        - fresh_warm["warm_seconds"]["build_wait"],
+        cold_first_exec_s=marks(cold)["first exec+fetch"],
+        cached_first_exec_s=marks(cached)["first exec+fetch"],
+        warm_vs_unwarmed_rel_err_of_scale=errs, warm_vs_unwarmed_bit_equal=bit_equal,
+        phase_s=phase_s)), flush=True)
+    return sum(out["launches"]["roi_align"] for out in runs.values())
+
+
 # ---- main ----------------------------------------------------------------
 
 
@@ -2725,9 +2894,11 @@ def main() -> int:
     print(f"clocks {clocks_line()}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+    warm_apart()
     try:
         rc.build_all()
-        print(f"build {len(rc.build_all.libs)} libraries {rc.build_all.seconds:.2f} s",
+        build_all_s = rc.build_all.seconds
+        print(f"build {len(rc.build_all.libs)} libraries {build_all_s:.2f} s",
               flush=True)
         for line in rc.build_all.log.splitlines():
             if line.startswith("==") or "registers" in line or "spill" in line:
@@ -2790,6 +2961,7 @@ def main() -> int:
         closure_recs, closure_fwd_err, closure_counts = phase_closure(card, flush)
         parity_counts, parity_recs = phase_parity(card, flush)
         tool_counts = phase_profile_tools(card, args.profile)
+        cold_counts = phase_cold_start(card, build_all_s)
     except SmokeFailure as e:
         print(f"FAIL {e}", file=sys.stderr)
         return 1
@@ -2828,7 +3000,9 @@ def main() -> int:
                                   **{f"closure {dtype}": c["roi_align"]
                                      for dtype, c in closure_counts.items()},
                                   **{path: c["roi_align"]
-                                     for path, c in {**parity_counts, **tool_counts}.items()}}
+                                     for path, c in {**parity_counts, **tool_counts}.items()},
+                                  "cold_start": cold_counts,
+                                  "warm_start": WARM_LAUNCHES["roi_align"]}
     kernels[1]["launches_by_path"] = {"train": train_counts["roi_align_backward"],
                                       "train_loop": loop_counts["roi_align_backward"],
                                       **{path: dp[path]["roi_align_backward"]

@@ -27,6 +27,7 @@ from ..data.pipeline import load_image, normalize_pad
 from ..models.detector import (
     Detections, HeadDraws, MonoRUn, compute_dtype, init_random_weights,
 )
+from ..utils.warm_start import serving_stems, start_build, warm_start
 from ..utils.weights import load_pth
 
 
@@ -62,10 +63,19 @@ class InferenceSession:
     resolution, native intrinsics and native (h, w) shapes; resizing,
     normalising and padding then run on the device
     (``data/pipeline.py:device_preprocess``).
+
+    ``warm=True`` (the default, as in JAX) warms a session on a GPU
+    (``utils/warm_start.py``): the libraries its path launches built or
+    loaded, one empty launch, one forward on a synthetic scene. Its first
+    request then builds and loads nothing; a failure raises. The pieces'
+    seconds are ``warm_seconds`` (None when not warmed). On the CPU, as
+    JAX warms only on the TPU, it does nothing. ``build`` is a
+    ``warm_start.start_build`` future started by the caller.
     """
 
     def __init__(self, cfg: MonoRUnConfig, model: MonoRUn, batch_size: int,
-                 device: torch.device, raw: bool = False):
+                 device: torch.device, raw: bool = False, warm: bool = True,
+                 build=None):
         self.cfg = cfg
         self.batch_size = batch_size
         self.device = device
@@ -76,6 +86,10 @@ class InferenceSession:
                 if p.dim() >= 2:
                     p.data = p.data.to(dt)
         self.model = model.to(device).eval()
+        self.warm_seconds: Optional[Dict[str, float]] = None
+        if warm and torch.device(device).type == "cuda":
+            self.warm_seconds = warm_start(cfg, self.model, batch_size, device, raw,
+                                           build=build)
 
     def run(self, images, cam, shapes, seed: int = 0,
             draws: HeadDraws = HeadDraws()) -> Detections:
@@ -125,6 +139,7 @@ def init_inference(
     device: str | torch.device = "cuda",
     seed: int = 0,
     raw: bool = False,
+    warm: bool = True,
 ) -> InferenceSession:
     """Build an InferenceSession from a preset name or config object.
 
@@ -132,7 +147,10 @@ def init_inference(
     ``torch.Generator`` seeded with ``seed``. A checkpoint is a reference
     ``.pth`` (``serving_config`` says how it sets ``neck.lazy_lower``) or
     a checkpoint directory of the port's training loop (``load_weights``).
-    ``raw`` selects the session's input (``InferenceSession``).
+    ``raw`` selects the session's input and ``warm`` its warm-up
+    (``InferenceSession``); on a GPU the warm-up's build of the kernels
+    starts on a worker thread before the model is made, so it overlaps
+    the weights' init or load.
 
     JAX's ``mesh=`` shards one batch over a host's devices inside one
     process. The port runs one process per GPU instead (``parallel/``):
@@ -145,12 +163,14 @@ def init_inference(
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(config) if isinstance(config, str) else config
     cfg = serving_config(cfg, checkpoint, explicit_lazy)
+    warm = warm and device.type == "cuda"
+    build = start_build(serving_stems(cfg, batch_size)) if warm else None
     model = MonoRUn(cfg)
     if checkpoint:
         load_weights(model, checkpoint)
     else:
         init_random_weights(model, torch.Generator().manual_seed(seed))
-    return InferenceSession(cfg, model, batch_size, device, raw=raw)
+    return InferenceSession(cfg, model, batch_size, device, raw=raw, warm=warm, build=build)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

@@ -196,7 +196,11 @@ def train_detector(
 def _run_val(cfg: MonoRUnConfig, model: MonoRUn, val_ds: KITTI3DDataset):
     """``run_eval`` at batch 2 on the training weights. The session serves
     a copy: it casts the weights to the compute dtype in place and sets
-    eval mode, which the training model must not see."""
+    eval mode, which the training model must not see. It is not warmed:
+    the loop has already built and loaded the kernels, so a warm-up would
+    only add a forward to every validation (JAX's ``_run_val`` takes the
+    warm default, whose compile its persistent cache makes cheap after the
+    first time)."""
     device = next(model.parameters()).device
-    session = InferenceSession(cfg, copy.deepcopy(model), 2, device)
+    session = InferenceSession(cfg, copy.deepcopy(model), 2, device, warm=False)
     return run_eval(session, val_ds, batch_size=2, print_summary=True)

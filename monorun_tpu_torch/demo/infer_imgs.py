@@ -17,6 +17,7 @@ from typing import Optional, Sequence
 import cv2
 
 from ..apis.inference import inference_detector, init_inference, read_calib_csv
+from ..utils.compile_cache import enable_compilation_cache
 from ..utils.visualizer import show_result
 
 
@@ -33,6 +34,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     args = p.parse_args(argv)
+    enable_compilation_cache()
 
     cam = read_calib_csv(args.calib)
     if args.calib_scale != 1.0:

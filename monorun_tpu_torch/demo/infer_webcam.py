@@ -17,6 +17,7 @@ import numpy as np
 
 from ..apis.inference import detections_to_host, init_inference, read_calib_csv
 from ..data.pipeline import normalize_pad
+from ..utils.compile_cache import enable_compilation_cache
 from ..utils.visualizer import show_result
 
 
@@ -30,6 +31,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     args = p.parse_args(argv)
+    enable_compilation_cache()
 
     cam = read_calib_csv(args.calib)
     session = init_inference(args.config, args.checkpoint, device=args.device)

@@ -1,9 +1,10 @@
 """ctypes binding + on-demand g++ build of the native eval kernels.
 
-The library is built at first use into the repository's git-ignored
-``build/native/`` (beside the CUDA kernels' ``build/torch_kernels/``),
-under a name that carries a hash of the source, so an edited source
-builds anew. Each build writes a temporary file of its own and moves it
+The library is built at first use into ``native/`` under the builds'
+root (``utils/compile_cache.py``: the repository's git-ignored ``build/``
+unless set otherwise; beside the CUDA kernels' ``torch_kernels/``), read
+when it builds, under a name that carries a hash of the source, so an
+edited source builds anew. Each build writes a temporary file of its own and moves it
 into place with ``os.replace``: processes that build at once never load
 a half-written library.
 """
@@ -20,8 +21,9 @@ from typing import Optional
 
 import numpy as np
 
+from ...utils.compile_cache import native_dir
+
 SRC = Path(__file__).resolve().parent / "kitti_stats.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "native"
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
@@ -29,7 +31,7 @@ _tried = False
 
 def lib_path() -> Path:
     digest = hashlib.sha256(SRC.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libkitti_stats_{sys.platform}_{digest}.so"
+    return native_dir() / f"libkitti_stats_{sys.platform}_{digest}.so"
 
 
 def _build(lib: Path) -> bool:

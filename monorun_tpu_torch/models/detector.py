@@ -92,6 +92,14 @@ def compute_dtype(cfg: MonoRUnConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
+def head_slot_count(cfg: MonoRUnConfig) -> int:
+    """K, the detections per image that the heads serve and the
+    detections' aligns take: ``test.head_slots`` when it cuts
+    ``test.max_per_img``, else all of them."""
+    tc = cfg.test
+    return tc.head_slots if 0 < tc.head_slots < tc.max_per_img else tc.max_per_img
+
+
 class PoseHead(nn.Module):
     """Holds the learnable covariance calibration scales."""
 
@@ -235,7 +243,7 @@ class MonoRUn(nn.Module):
             det_labels = det_labels.clamp(0, cfg.bbox_head.num_classes - 1)
 
             # ---- head slots: the K best (score-sorted) detections per image --
-            K = tc.head_slots if 0 < tc.head_slots < M else M
+            K = head_slot_count(cfg)
             hd_boxes = det_boxes[:, :K]
             hd_labels = det_labels[:, :K]
             hd_valid = det_valid[:, :K]
@@ -717,3 +725,13 @@ def init_random_weights(model: MonoRUn, generator: torch.Generator,
         for name, b in model.named_buffers():
             b.fill_(1.0 if name.endswith("running_var") else 0.0)
     return model
+
+
+def init_detector(cfg: MonoRUnConfig, generator: torch.Generator, fast: bool = True) -> MonoRUn:
+    """A detector with seeded random weights (``monorun_tpu/models/
+    detector.py:init_detector``): ``fast`` draws them as the JAX package's
+    serving init does (a plain normal, ``_fast_init_variables``), else as
+    its traced training init (flax's ``lecun_normal``, truncated). The
+    JAX function returns (model, variables); a torch module holds its
+    weights, so this returns the model."""
+    return init_random_weights(MonoRUn(cfg), generator, truncated=not fast)

@@ -69,6 +69,39 @@ def _rows(a: Tensor) -> List[List[Tensor]]:
     return [[a[..., i, j] for j in range(n)] for i in range(n)]
 
 
+def cholesky_unrolled(a: Tensor) -> Tensor:
+    """Batched Cholesky factor L of (..., n, n) SPD matrices."""
+    n = a.shape[-1]
+    l = _chol_scalars(_rows(a))
+    zero = torch.zeros_like(a[..., 0, 0])
+    return torch.stack(
+        [torch.stack([l[i][j] if j <= i else zero for j in range(n)], -1) for i in range(n)],
+        -2,
+    )
+
+
+def cho_solve(l: Tensor, b: Tensor) -> Tensor:
+    """Solve A x = b given L = cholesky(A); b (..., n) -> x (..., n)."""
+    n = l.shape[-1]
+    return torch.stack(_solve_scalars(_rows(l), [b[..., i] for i in range(n)]), -1)
+
+
+def spd_solve(a: Tensor, b: Tensor) -> Tensor:
+    """Batched SPD solve, (..., n, n) x (..., n) -> (..., n)."""
+    n = a.shape[-1]
+    x = _solve_scalars(_chol_scalars(_rows(a)), [b[..., i] for i in range(n)])
+    return torch.stack(x, dim=-1)
+
+
+def slogdet_spd(a: Tensor) -> Tensor:
+    """log det of SPD (..., n, n) through Cholesky: 2 sum log diag L."""
+    l = _chol_scalars(_rows(a))
+    s = torch.log(l[0][0])
+    for i in range(1, len(l)):
+        s = s + torch.log(l[i][i])
+    return 2.0 * s
+
+
 def spd_solve_packed(a: Tensor, b: Tensor) -> Tensor:
     """a (n, n, ...), b (n, ...) -> x (..., n)."""
     n = a.shape[0]

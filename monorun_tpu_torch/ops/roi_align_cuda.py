@@ -1,14 +1,16 @@
 """Build, bindings and wrappers of the hand-written CUDA RoIAlign kernels
 (``csrc/*.cu``).
 
-Every source under ``csrc/`` is compiled with ``nvcc`` at first use, one
-process per source, all started together, into shared libraries with a
-plain C interface under ``build/torch_kernels/<hash>/`` at the repository
-root (the hash covers every source, header and flag), and loaded with
-``ctypes``. A failed build, a refused launch or a bad argument raises;
-there is no fallback to a plain version. Processes that start together
-(the ranks of a data-parallel run) build one after another under a file
-lock on the build directory, so the later ones load what the first built.
+A source under ``csrc/`` is compiled with ``nvcc`` when a kernel of it is
+first bound (``build_all(stems)``: only the sources asked for, one process
+per source, all started together), into shared libraries with a plain C
+interface under ``torch_kernels/<hash>/`` in the builds' root
+(``utils/compile_cache.py``, read when it builds; the hash covers every
+source, header and flag), and loaded with ``ctypes``. A failed build, a
+refused launch or a bad argument raises; there is no fallback to a plain
+version. Processes that start together (the ranks of a data-parallel run)
+build one after another under a file lock on the build directory, so the
+later ones load what the first built.
 
 Kernels, each with a ``launches`` count (one per call that launches it):
 
@@ -42,16 +44,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils.compile_cache import kernels_dir
+
 Tensor = torch.Tensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 MAX_LEVELS = 5
 MAX_RATIO = 16       # the direct kernel's samples per axis: one lane each
 NVCC_FLAGS = (
@@ -116,7 +120,7 @@ def build_source(src: Path) -> Tuple[ctypes.CDLL, str]:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
     for path in sorted(CSRC.glob("*.cuh")) + sorted(src.parent.glob("*.cuh")):
         digest.update(path.name.encode() + path.read_bytes())
-    out_dir = BUILD_DIR / f"one-{digest.hexdigest()[:16]}"
+    out_dir = kernels_dir() / f"one-{digest.hexdigest()[:16]}"
     out_dir.mkdir(parents=True, exist_ok=True)
     lib = out_dir / f"lib{src.stem}.so"
     log = ""
@@ -128,34 +132,56 @@ def build_source(src: Path) -> Tuple[ctypes.CDLL, str]:
 
 
 class KernelBuild:
-    """The libraries of every source, built together once per process:
-    ``build_all()`` returns them by source stem; ``log`` holds nvcc's and
-    ptxas's output (registers, spills), ``seconds`` the wall time."""
+    """The libraries of the sources under ``csrc/``, each built at most once
+    per process: ``build_all(stems)`` builds (those not yet in the build
+    directory, together) and loads the named ones, or every one when given
+    none, and returns them by source stem. ``libs`` holds every library
+    loaded so far, ``built`` the stems this process ran ``nvcc`` on (one
+    job each), ``log`` nvcc's and ptxas's output (registers, spills) and
+    ``seconds`` the wall time of the last call that built or loaded."""
 
     def __init__(self):
-        self.libs: Optional[Dict[str, ctypes.CDLL]] = None
+        self.libs: Dict[str, ctypes.CDLL] = {}
+        self.built: list = []
         self.log = ""
         self.seconds: Optional[float] = None
+        self._lock = threading.Lock()
 
-    def __call__(self) -> Dict[str, ctypes.CDLL]:
-        if self.libs is not None:
-            return self.libs
+    @staticmethod
+    def stems() -> Tuple[str, ...]:
+        """Every source's stem."""
+        return tuple(s.stem for s in sorted(CSRC.glob("*.cu")))
+
+    def __call__(self, stems: Optional[Sequence[str]] = None) -> Dict[str, ctypes.CDLL]:
+        known = self.stems()
+        stems = known if stems is None else tuple(stems)
+        unknown = sorted(set(stems) - set(known))
+        if unknown:
+            raise ValueError(f"no source csrc/<stem>.cu for {unknown}; the stems are {known}")
+        with self._lock:
+            missing = [s for s in stems if s not in self.libs]
+            if missing:
+                self._load(missing)
+            return {s: self.libs[s] for s in stems}
+
+    def _load(self, stems: Sequence[str]) -> None:
         t0 = time.perf_counter()
-        sources = sorted(CSRC.glob("*.cu"))
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
         for path in sorted(CSRC.iterdir()):
             digest.update(path.name.encode() + path.read_bytes())
-        out_dir = BUILD_DIR / digest.hexdigest()[:16]
+        out_dir = kernels_dir() / digest.hexdigest()[:16]
         with _locked(out_dir):
-            jobs = [_start_nvcc(src, out_dir / f"lib{src.stem}.so") for src in sources
-                    if not (out_dir / f"lib{src.stem}.so").exists()]
+            todo = [s for s in stems if not (out_dir / f"lib{s}.so").exists()]
+            jobs = [_start_nvcc(CSRC / f"{s}.cu", out_dir / f"lib{s}.so") for s in todo]
             log, failed = _finish_nvcc(jobs)
+        self.built += todo
         if failed:
             raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
-        self.log = log
-        self.libs = {s.stem: ctypes.CDLL(str(out_dir / f"lib{s.stem}.so")) for s in sources}
+        if log:
+            self.log = "\n".join(filter(None, (self.log, log)))
+        for s in stems:
+            self.libs[s] = ctypes.CDLL(str(out_dir / f"lib{s}.so"))
         self.seconds = time.perf_counter() - t0
-        return self.libs
 
 
 build_all = KernelBuild()
@@ -213,11 +239,11 @@ class RoIAlignKernel:
         self._lib = None
 
     def build(self) -> ctypes.CDLL:
-        """Build every kernel (unless built) and bind this one."""
+        """Build its library (unless built) and bind this kernel."""
         if self._lib is not None:
             return self._lib
         if self.source is None:
-            lib = build_all()["roi_align"]
+            lib = build_all(["roi_align"])["roi_align"]
             self.build_log = build_all.log
         else:
             lib, self.build_log = build_source(self.source)
@@ -350,11 +376,11 @@ class RoIAlignBackwardKernel:
         self._lib = None
 
     def build(self) -> ctypes.CDLL:
-        """Build every kernel (unless built) and bind this one."""
+        """Build its library (unless built) and bind this kernel."""
         if self._lib is not None:
             return self._lib
         if self.source is None:
-            lib = build_all()["roi_align_bwd"]
+            lib = build_all(["roi_align_bwd"])["roi_align_bwd"]
             self.build_log = build_all.log
         else:
             lib, self.build_log = build_source(self.source)
@@ -648,7 +674,8 @@ class StagedKernel:
     def _load(self) -> ctypes.CDLL:
         if self._lib is None:
             if self.source is None:
-                self._lib, self.build_log = build_all()[self.lib], build_all.log
+                self._lib = build_all([self.lib])[self.lib]
+                self.build_log = build_all.log
             else:
                 self._lib, self.build_log = build_source(self.source)
         return self._lib

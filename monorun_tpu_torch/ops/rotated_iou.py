@@ -120,6 +120,23 @@ def rotated_iou(boxes_a: Tensor, boxes_b: Tensor) -> Tensor:
     return inter / denom.clamp(min=1e-8)
 
 
+def rotated_iou_aligned(boxes_a: Tensor, boxes_b: Tensor, criterion: int = -1) -> Tensor:
+    """Element-wise rotated IoU, (n, 5) x (n, 5) -> (n,). ``criterion``: -1
+    IoU, 0 intersection over area a, 1 over area b, 2 the intersection."""
+    inter = rotated_intersection_area(boxes_a, boxes_b)
+    area_a = boxes_a[:, 2] * boxes_a[:, 3]
+    area_b = boxes_b[:, 2] * boxes_b[:, 3]
+    if criterion == -1:
+        denom = area_a + area_b - inter
+    elif criterion == 0:
+        denom = area_a
+    elif criterion == 1:
+        denom = area_b
+    else:
+        return inter
+    return inter / denom.clamp(min=1e-8)
+
+
 def bbox3d_overlaps_aligned(boxes: Tensor, qboxes: Tensor, z_center: float = 1.0) -> Tensor:
     """Element-wise camera-frame 3D IoU of (n, 7) [x, y, z, l, h, w, ry]
     boxes: BEV rotated intersection times the height overlap over the
@@ -136,3 +153,20 @@ def bbox3d_overlaps_aligned(boxes: Tensor, qboxes: Tensor, z_center: float = 1.0
     inter = ih * inter_bev
     iou = inter / (vol_a + vol_b - inter).clamp(min=1e-6)
     return iou.clamp(0.0, 1.0)
+
+
+def bbox3d_overlaps(boxes: Tensor, qboxes: Tensor, z_center: float = 1.0) -> Tensor:
+    """Pairwise camera-frame 3D IoU, (n, 7) x (k, 7) -> (n, k)."""
+    n, k = boxes.shape[0], qboxes.shape[0]
+    a = boxes[:, None, :].expand(n, k, 7).reshape(n * k, 7)
+    b = qboxes[None, :, :].expand(n, k, 7).reshape(n * k, 7)
+    return bbox3d_overlaps_aligned(a, b, z_center).reshape(n, k)
+
+
+def dimonly_iou_aligned(dim_a: Tensor, dim_b: Tensor) -> Tensor:
+    """Axis-aligned, co-centred 3D IoU of dimensions alone, (n, 3) x (n, 3)
+    -> (n,)."""
+    vol_a = dim_a.prod(1)
+    vol_b = dim_b.prod(1)
+    vol_i = torch.minimum(dim_a, dim_b).prod(1)
+    return vol_i / (vol_a + vol_b - vol_i).clamp(min=1e-8)

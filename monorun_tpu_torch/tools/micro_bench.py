@@ -47,6 +47,7 @@ from ..config import get_config
 from ..ops import roi_align as ra
 from ..ops.roi_align_band import multilevel_roi_align_band
 from ..ops.roi_align_tile import multilevel_roi_align_tile, prepare_flat_pyramid
+from ..utils.compile_cache import enable_compilation_cache
 
 OPS = ("pyramid", "align7k", "align7", "align14", "align48", "global", "noc", "carafe",
        "pnp", "proposals")
@@ -260,6 +261,7 @@ def card_line() -> str:
 
 
 def main(argv: Sequence[str]) -> int:
+    enable_compilation_cache()
     batch = int(argv[0]) if argv else 8
     ops = tuple(argv[1:]) or OPS
     print(f"card {card_line()}", flush=True)

@@ -48,6 +48,7 @@ from ..apis.test import run_eval
 from ..config import MonoRUnConfig, apply_overrides, get_config
 from ..data.kitti import KITTI3DDataset
 from ..data.pipeline import prepare_test_sample
+from ..utils.compile_cache import enable_compilation_cache
 
 REPLICA = Path(__file__).resolve().parents[2] / "tests" / "torch_ref" / "backbone.py"
 
@@ -156,6 +157,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     """Returns ``ap`` (the AP dict), ``activations`` (``diff_activations``'
     rows, or None) and ``cfg`` (the config served)."""
     args = parse_args(argv)
+    enable_compilation_cache()
     cfg = parity_config(args.config, args.kitti_root, args.cfg_options)
     print(f"[parity] deviations OFF: lazy_lower={cfg.neck.lazy_lower} "
           f"head_slots={cfg.test.head_slots} dtype={cfg.compute_dtype}")

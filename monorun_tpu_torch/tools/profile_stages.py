@@ -33,6 +33,7 @@ import torch
 from ..apis.inference import InferenceSession, init_inference
 from ..config import MonoRUnConfig, apply_overrides, get_config
 from ..ops import roi_align_cuda as rc
+from ..utils.compile_cache import enable_compilation_cache
 from ..utils.stages import STAGES, timing
 
 CONFIG = "kitti_multiclass"
@@ -148,6 +149,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
+    enable_compilation_cache()
     cfg = apply_overrides(get_config(CONFIG), args.cfg_options)
     session = serving_session(cfg, args.batch, args.device)
     requests = canvases(cfg, args.batch, 2, session.device)

@@ -35,6 +35,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..config import apply_overrides, get_config
+from ..utils.compile_cache import enable_compilation_cache
 from ..utils.stages import STAGES, timing
 from .profile_stages import CONFIG, canvases, serving_session, synchronize, timed_run
 
@@ -147,6 +148,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
+    enable_compilation_cache()
     cfg = apply_overrides(get_config(CONFIG), args.cfg_options)
     session = serving_session(cfg, args.batch, args.device)
     result = trace_forwards(session, canvases(cfg, args.batch, 2, session.device),

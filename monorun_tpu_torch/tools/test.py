@@ -26,6 +26,7 @@ from ..apis.test import run_eval
 from ..config import apply_overrides, get_config
 from ..data.kitti import KITTI3DDataset
 from ..parallel import launch_env, process_group, rank
+from ..utils.compile_cache import enable_compilation_cache
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -57,6 +58,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     args = parse_args(argv)
+    enable_compilation_cache()
     batch_size = args.batch_size
     if args.distributed:
         local_world = int(launch_env()["LOCAL_WORLD_SIZE"])

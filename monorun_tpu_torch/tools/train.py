@@ -30,6 +30,7 @@ from ..apis.train import train_detector
 from ..config import apply_overrides, get_config
 from ..data.kitti import KITTI3DDataset
 from ..parallel import process_group, rank
+from ..utils.compile_cache import enable_compilation_cache
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -53,6 +54,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Sequence[str]] = None):
     """Returns ``train_detector``'s (model, final train state)."""
     args = parse_args(argv)
+    enable_compilation_cache()
     cfg = get_config(args.config)
     if args.seed is not None:
         cfg = apply_overrides(cfg, [f"train.seed={args.seed}"])

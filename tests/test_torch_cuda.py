@@ -930,3 +930,48 @@ def test_backward_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rc.roi_align_direct(feats, rois, STRIDES5, (7, 7), 4.0, 3, ra.LONG_SPAN_CAP)
     assert kernel.launches == 0 and kernel._lib is None
+
+
+# ---- the warm session (utils/warm_start.py) -----------------------------------
+
+
+@pytest.mark.cuda
+def test_warm_session_first_request_builds_nothing(cuda_device, monkeypatch, tmp_path):
+    """A session warmed on the card in a fresh builds' root, at the tiny
+    configuration of ``test_torch_cold_start.py``: the warm-up builds the
+    direct kernel's library alone and launches it 3 times (its one
+    forward), apart from the requests; the first request starts no
+    ``nvcc``, launches it 3 times, and equals bit for bit an unwarmed
+    session's request on the same weights, inputs and seed."""
+    from monorun_tpu_torch.apis.inference import init_inference
+    from monorun_tpu_torch.utils import compile_cache as cc
+    from test_torch_cold_start import ALIGN_ENV, B, _request, tiny_config
+
+    for name in ALIGN_ENV:
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(cc, "_root", None)
+    cc.enable_compilation_cache(tmp_path)
+    monkeypatch.setattr(rc, "build_all", rc.KernelBuild())
+    monkeypatch.setattr(roi_align_kernel, "_lib", None)
+    cfg = tiny_config()
+    request = _request(cfg, raw=False)
+
+    before = roi_align_kernel.launches
+    warm = init_inference(cfg, batch_size=B, device=cuda_device, seed=0)
+    assert rc.build_all.built == ["roi_align"]
+    assert list(rc.build_all.libs) == ["roi_align"]
+    assert roi_align_kernel.launches - before == 3
+    assert set(warm.warm_seconds) == {"build", "build_wait", "load", "forward"}
+
+    before = roi_align_kernel.launches
+    got = warm.run(*request, seed=4)
+    torch.cuda.synchronize()
+    assert rc.build_all.built == ["roi_align"]
+    assert roi_align_kernel.launches - before == 3
+
+    cold = init_inference(cfg, batch_size=B, device=cuda_device, seed=0, warm=False)
+    assert cold.warm_seconds is None
+    ref = cold.run(*request, seed=4)
+    for name, a in ref._asdict().items():
+        if name != "extras":
+            assert torch.equal(a, getattr(got, name)), name

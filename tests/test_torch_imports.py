@@ -29,7 +29,8 @@ def test_port_imports_with_jax_and_reference_blocked():
                  "demo", "demo.infer_imgs", "demo.infer_webcam", "apis.train",
                  "utils.checkpoint", "tools.train", "parallel", "parallel.mesh",
                  "parallel.gather", "utils.stages", "tools.parity", "tools.profile_stages",
-                 "tools.flop_budget", "tools.profile_trace"):
+                 "tools.flop_budget", "tools.profile_trace", "utils.compile_cache",
+                 "utils.warm_start", "tools.cold_profile"):
         assert f"monorun_tpu_torch.{name}" in names, name
     code = (
         "import sys\n"

@@ -9,6 +9,7 @@ its ``num_batches_tracked`` and loss buffers) strictly.
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from monorun_tpu.config import get_config
@@ -61,9 +62,7 @@ def test_load_pth_reference_layout(tmp_path):
         torch.testing.assert_close(fresh.state_dict()[k], v, rtol=0, atol=0)
 
 
-def test_random_init_rules():
-    model = init_random_weights(MonoRUn(tiny_config(tget_config)),
-                                torch.Generator().manual_seed(0))
+def _check_init_rules(model):
     w = model.backbone.layer1[0].conv2.weight
     fan_in = w[0].numel()
     assert abs(float(w.detach().std()) * np.sqrt(fan_in) - 1.0) < 0.05
@@ -71,6 +70,47 @@ def test_random_init_rules():
     bn = model.backbone.bn1
     assert (bn.weight == 1).all() and (bn.running_var == 1).all()
     assert not bn.bias.any() and not bn.running_mean.any()
+
+
+def _check_lecun_bounds(model, inside: bool):
+    """Every >= 2-D weight but the latent decoder within flax's
+    ``lecun_normal`` truncation (two standard deviations of its normal),
+    or, when not ``inside``, some beyond it (a plain normal)."""
+    from monorun_tpu_torch.models.detector import TRUNCATED_STD
+
+    edge = 2.0 / TRUNCATED_STD
+    latent = model.roi_head.noc_head.latent_decoder.weight
+    beyond = False
+    for name, p in model.named_parameters():
+        if p.dim() >= 2 and p is not latent:
+            over = float(p.detach().abs().max()) > edge / p[0].numel() ** 0.5 * (1 + 1e-6)
+            assert not (inside and over), name
+            beyond |= over
+    assert inside or beyond
+
+
+def test_random_init_rules():
+    model = init_random_weights(MonoRUn(tiny_config(tget_config)),
+                                torch.Generator().manual_seed(0))
+    _check_init_rules(model)
+
+
+@pytest.mark.parametrize("fast", [True, False])
+def test_init_detector_draws_as_jax_init_detector(fast):
+    """``init_detector(cfg, generator, fast)``: JAX's ``fast=True`` serving
+    draw (a plain normal, ``init_random_weights``' default, bit for bit on
+    the same seed) or its traced training init (``lecun_normal``,
+    ``truncated``), each with the init rules above."""
+    from monorun_tpu_torch.models.detector import init_detector as tinit_detector
+
+    cfg = tiny_config(tget_config)
+    model = tinit_detector(cfg, torch.Generator().manual_seed(0), fast=fast)
+    _check_init_rules(model)
+    _check_lecun_bounds(model, inside=not fast)
+    same = init_random_weights(MonoRUn(cfg), torch.Generator().manual_seed(0),
+                               truncated=not fast)
+    for (k, a), b in zip(model.state_dict().items(), same.state_dict().values()):
+        assert torch.equal(a, b), k
 
 
 def test_training_init_is_flax_lecun_normal():
