@@ -154,6 +154,10 @@ Phases, each printing its own lines:
    3 + 9 launches per step per rank, ms per step per rank (between the
    ends of an epoch's consecutive steps), global img/s and the gradient
    all-reduce's ms and share of a step, beside phase 15's world-1 loop;
+   then one validation on phase 15's 4 validation images, run by both
+   ranks (``_run_val``: each detects one of the two batches of 2, with 3
+   direct-kernel launches, and both return the same AP dict), each rank's
+   seconds in it;
    (ii) one rank under NCCL at world size 1: ``tools.train
    kitti_multiclass --distributed`` (bf16, batch 3, 2 steps, a checkpoint
    and a validation) on phase 15's mini-KITTI, the collectives the layer
@@ -2120,14 +2124,30 @@ def dp_rank(rank, port, loop_root):
 def dp_loop(root, dev):
     """``train_detector`` at kitti_multiclass (bf16, samples_per_device 3, so
     a global batch of 6) on ``root``'s 12 images for 3 epochs of 2 steps,
-    no checkpoint but the last and no validation: each step's end, launches
-    and all-reduce ms."""
+    no checkpoint but the last and one validation, after the last epoch, on
+    its 4 validation images: each step's end, launches and all-reduce ms,
+    and the validation's seconds, launches, seeds and AP on this rank."""
     cfg = get_config("kitti_multiclass")
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, train_root=str(root), train_list="loop_train.txt"), train=dataclasses.replace(
-        cfg.train, total_epochs=DP_LOOP_EPOCHS, checkpoint_interval=0, eval_interval=0,
-        tensorboard=False))
-    steps, reduces, waits = [], [], []
+        cfg.train, total_epochs=DP_LOOP_EPOCHS, checkpoint_interval=0,
+        eval_interval=DP_LOOP_EPOCHS, tensorboard=False))
+    steps, reduces, waits, vals, seeds = [], [], [], [], []
+    run_val, run = apis_train._run_val, InferenceSession.run
+
+    def validate(*args):
+        start = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ap = run_val(*args)
+        torch.cuda.synchronize()
+        vals.append(dict(s=time.perf_counter() - t0, ap=ap,
+                         launches={k: v - start[k] for k, v in read_counts().items()}))
+        return ap
+
+    def seeded_run(self, images, cam, shapes, seed=0, **kw):
+        seeds.append(seed)
+        return run(self, images, cam, shapes, seed=seed, **kw)
 
     def step(*args, **kw):
         start, t0 = read_counts(), time.perf_counter()
@@ -2152,9 +2172,12 @@ def dp_loop(root, dev):
                 yield batch
 
     work = DP_DIR / "loop_work"
+    val_ds = KITTI3DDataset(str(root), "loop_val.txt")
     with align_env({}), patched(apis_train, "train_step", step), timed_all_reduce(reduces), \
-            patched(apis_train, "PrefetchLoader", TimedLoader):
-        apis_train.train_detector(cfg, str(work), device=dev)
+            patched(apis_train, "PrefetchLoader", TimedLoader), \
+            patched(apis_train, "_run_val", validate), \
+            patched(InferenceSession, "run", seeded_run):
+        apis_train.train_detector(cfg, str(work), val_ds=val_ds, device=dev)
     parallel.barrier()
     if parallel.rank() == 0:
         shutil.rmtree(work, ignore_errors=True)
@@ -2167,7 +2190,8 @@ def dp_loop(root, dev):
                 step_ms=[(s["end"] - s["start"]) * 1e3 for s in steps], loader_wait_ms=waits,
                 grad_all_reduce_ms=[r["ms"] for r in grad_reduces],
                 grad_all_reduce_elements=grad_reduces[0]["elements"],
-                metric_all_reduce_ms=[r["ms"] for r in reduces if r["elements"] <= 1000])
+                metric_all_reduce_ms=[r["ms"] for r in reduces if r["elements"] <= 1000],
+                vals=vals, val_seeds=seeds)
 
 
 def dp_nccl(port, loop_root, eval_root):
@@ -2338,6 +2362,17 @@ def phase_dp(card, eval_results, loop_stats):
                                                  f"steps")
         for i, c in enumerate(lp["launches"]):
             check_launches(c, per_step, 1, f"dp loop rank {r['rank']} step {i + 1}")
+    n_val = -(-LOOP_VAL // VAL_BATCH)
+    for r, lp in zip(ranks, loops):
+        check(len(lp["vals"]) == 1, f"dp loop rank {r['rank']}: {len(lp['vals'])} validations")
+        check_launches(lp["vals"][0]["launches"], {"roi_align": 3}, n_val // DP_WORLD,
+                       f"dp loop rank {r['rank']} validation")
+        check(lp["vals"][0]["ap"] == loops[0]["vals"][0]["ap"] and lp["vals"][0]["ap"],
+              f"dp loop: rank {r['rank']}'s validation AP differs from rank 0's")
+    # each rank detects its batches of a one-process validation, seeded alike
+    check(sorted(sd for lp in loops for sd in lp["val_seeds"])
+          == list(range(0, LOOP_VAL, VAL_BATCH)) and all(lp["val_seeds"] for lp in loops),
+          f"dp loop: the validation's batch seeds {[lp['val_seeds'] for lp in loops]}")
     ms = [statistics.median(lp["gaps_ms"]) for lp in loops]
     reduce_ms = [statistics.median(lp["grad_all_reduce_ms"]) for lp in loops]
     print("dp_loop " + json.dumps(dict(
@@ -2352,7 +2387,10 @@ def phase_dp(card, eval_results, loop_stats):
         grad_all_reduce_elements=loops[0]["grad_all_reduce_elements"],
         metric_all_reduce_ms=statistics.median(loops[0]["metric_all_reduce_ms"]),
         world1_ms_per_step=loop_stats["ms_per_step"],
-        world1_train_img_per_s=loop_stats["train_img_per_s"])), flush=True)
+        world1_train_img_per_s=loop_stats["train_img_per_s"],
+        val_s_per_rank=[lp["vals"][0]["s"] for lp in loops],
+        val_seeds_per_rank=[lp["val_seeds"] for lp in loops],
+        val_images=LOOP_VAL, val_ap_keys=len(loops[0]["vals"][0]["ap"]))), flush=True)
 
     # (ii) one NCCL rank: tools.train and tools.test --distributed
     t0 = time.perf_counter()

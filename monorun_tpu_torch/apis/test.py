@@ -11,7 +11,10 @@ Distributed evaluation (the reference's ``multi_gpu_test`` and
 ``collect_results``): each rank of the process group serves its strided
 shard of the dataset (``parallel.dataset_shard``) with its own session,
 and the per-image results are all-gathered (``parallel.allgather_results``)
-so that every rank evaluates the whole list.
+so that every rank evaluates the whole list. With ``whole_batches`` a
+rank detects whole batches of the one-process run instead (the training
+loop's validation): every image keeps its batch and its batch's seed, so
+the results are the one-process run's.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from __future__ import annotations
 import os
 import time
 from typing import Dict, Optional
+
+import numpy as np
 
 from ..data.kitti import KITTI3DDataset
 from ..data.loader import PrefetchLoader
@@ -37,15 +42,22 @@ def run_eval(
     show_dir: Optional[str] = None,
     show_score_thr: float = 0.3,
     distributed: bool = False,
+    whole_batches: bool = False,
 ) -> Dict[str, float]:
     """Detect every image of ``ds`` with ``session`` (``raw=False``) and
     evaluate; returns the AP dict (empty without labels). Each batch's
     draws are seeded with its first dataset index, as in the JAX package.
     ``distributed``: this rank detects its shard, every rank evaluates the
     gathered results, and rank 0 alone writes ``result_dir`` and prints
-    the summary (ranks on one host would write the same files)."""
+    the summary (ranks on one host would write the same files).
+    ``whole_batches`` (with ``distributed``): this rank detects its
+    ``dataset_shard`` of the one-process run's batches of ``batch_size``,
+    so each image is drawn for as at world size 1."""
     cfg = session.cfg
-    indices = dataset_shard(len(ds)) if distributed else None
+    indices = None
+    if distributed:
+        indices = (batch_shard(len(ds), batch_size) if whole_batches
+                   else dataset_shard(len(ds)))
     loader = PrefetchLoader(
         ds, cfg.data, batch_size, train=False, shuffle=False, drop_last=False,
         indices=indices,
@@ -95,6 +107,15 @@ def run_eval(
         results, metrics=metrics, result_dir=result_dir,
         print_summary=print_summary,
     )
+
+
+def batch_shard(n: int, batch_size: int) -> np.ndarray:
+    """The images of this rank's ``dataset_shard`` of the ``batch_size``
+    batches that a one-process run over ``n`` images makes."""
+    batches = dataset_shard((n + batch_size - 1) // batch_size)
+    return np.array([i for b in batches for i in range(b * batch_size,
+                                                       min((b + 1) * batch_size, n))],
+                    np.int64)
 
 
 def _show(ds: KITTI3DDataset, idx: int, res: dict, show_dir: str,

@@ -8,9 +8,13 @@ as JAX's is over its mesh. Every rank runs the same seeded loader over the
 global batch and keeps its own rows (``shard_batch``), as each JAX process
 takes its rows of one global array, so the augmentation draws are JAX's;
 each rank decodes the whole global batch. Rank 0 alone writes
-``train_log.jsonl``, ``grad_stats.jsonl`` and the checkpoints and runs the
-validation, the others waiting at a barrier: JAX's processes each write on
-their own host, and ranks on one host would write the same files. Each
+``train_log.jsonl``, ``grad_stats.jsonl`` and the checkpoints, the others
+waiting at a barrier: JAX's processes each write on their own host, and
+ranks on one host would write the same files. Every rank runs the
+validation, each detecting its share of its batches (``run_eval`` with
+``distributed`` and ``whole_batches``), and every rank evaluates the
+gathered results: the AP of a world-1 run on the same weights, as JAX's
+processes each evaluate the whole set; rank 0 alone logs it. Each
 batch goes to the device in one pinned, non-blocking copy per array;
 metrics come to the host only at the log interval.
 
@@ -180,9 +184,9 @@ def train_detector(
                 save_checkpoint(workdir, model, optimizer, state, step)
             barrier()
         if val_ds is not None and tr.eval_interval and epoch % tr.eval_interval == 0:
+            ap = _run_val(cfg, model, val_ds)
             if lead:
-                logger.log_eval(step, _run_val(cfg, model, val_ds))
-            barrier()
+                logger.log_eval(step, ap)
         if max_steps is not None and step >= max_steps:
             break
 
@@ -200,7 +204,10 @@ def _run_val(cfg: MonoRUnConfig, model: MonoRUn, val_ds: KITTI3DDataset):
     the loop has already built and loaded the kernels, so a warm-up would
     only add a forward to every validation (JAX's ``_run_val`` takes the
     warm default, whose compile its persistent cache makes cheap after the
-    first time)."""
+    first time). In a process group each rank detects its share of the
+    batches and every rank returns the AP of the whole set; rank 0 alone
+    prints it."""
     device = next(model.parameters()).device
     session = InferenceSession(cfg, copy.deepcopy(model), 2, device, warm=False)
-    return run_eval(session, val_ds, batch_size=2, print_summary=True)
+    return run_eval(session, val_ds, batch_size=2, print_summary=True,
+                    distributed=world_size() > 1, whole_batches=True)

@@ -37,7 +37,9 @@ def allgather_results(local: Dict[int, Dict[str, np.ndarray]], total: int
     each rank stacks each field of its results into one array, pads its
     count up to ``ceil(total / world)`` with zeros and marks the padding
     with index -1; the padded stacks are all-gathered
-    (``all_gather_object``) and reassembled by index."""
+    (``all_gather_object``) and reassembled by index. A larger shard (whole
+    batches, ``apis/test.py:batch_shard``) goes unpadded, an empty one as
+    no fields."""
     results: List[Optional[dict]] = [None] * total
     world = world_size()
     if world == 1:
@@ -48,10 +50,9 @@ def allgather_results(local: Dict[int, Dict[str, np.ndarray]], total: int
         raise ValueError(f"{total} samples over {world} ranks: every rank must own one "
                          f"(the gathered field sets must match)")
     idxs = np.asarray(sorted(local), np.int32)
-    first = local[int(idxs[0])]
-    cap = -(-total // world)
-    pad = cap - len(idxs)
+    pad = max(-(-total // world) - len(idxs), 0)
     idxs_p = np.concatenate([idxs, np.full(pad, -1, np.int32)])
+    first = local[int(idxs[0])] if len(idxs) else {}
     stacked = {k: np.concatenate([np.stack([local[int(i)][k] for i in idxs]),
                                   np.zeros((pad,) + first[k].shape, first[k].dtype)])
                for k in sorted(first)}

@@ -15,7 +15,6 @@ is ``tests/test_torch_cuda.py``.
 
 import ast
 import math
-import os
 import re
 import types
 from pathlib import Path
@@ -33,6 +32,8 @@ from monorun_tpu_torch.ops import roi_align_cuda as rc
 from monorun_tpu_torch.tools import cold_profile
 from monorun_tpu_torch.utils import compile_cache as cc
 from monorun_tpu_torch.utils import warm_start as ws
+
+from torch_share import cpu_share  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 B, H, W = 2, 64, 128
@@ -53,18 +54,6 @@ ALIGN_ENV = ("MONORUN_ALIGN_IMPL", "MONORUN_BAND_TIERED", "MONORUN_BAND_MATMUL")
 
 def tiny_config():
     return apply_overrides(get_config("kitti_multiclass"), TINY_OPTIONS)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def cpu_share():
-    """Under pytest-xdist each worker takes its share of torch's threads, as
-    ``test_torch_train_loop.py:cpu_share`` does (that file imports JAX, and
-    this one must not: ``test_torch_cuda.py`` imports it on the card)."""
-    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(max(1, threads // workers))
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture

@@ -35,6 +35,8 @@ from monorun_tpu_torch.ops import roi_align_cuda as rc
 from monorun_tpu_torch.ops import roi_align_tile as rt
 from monorun_tpu_torch.ops.roi_align_cuda import RoIAlignKernel, roi_align_kernel
 
+from torch_share import cpu_share  # noqa: F401
+
 STRIDES = (4, 4, 8, 16)    # the lazy-lower rule: level 0 stored at stride 4
 SPECIAL = np.array(
     [

@@ -29,6 +29,8 @@ from monorun_tpu_torch.data import loader as tl
 from monorun_tpu_torch.data import pipeline as tp
 from monorun_tpu_torch.data import transforms as tt
 
+from torch_share import cpu_share  # noqa: F401
+
 N_IMAGES = 5
 
 

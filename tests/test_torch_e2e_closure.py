@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import torch_e2e_closure as closure
+from torch_share import cpu_share  # noqa: F401
 
 # cuBLAS's deterministic kernels need this before CUDA starts
 os.environ.setdefault(*closure.CUBLAS_CONFIG)

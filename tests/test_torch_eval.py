@@ -19,6 +19,8 @@ from monorun_tpu.eval import rotated_iou_np as jri
 from monorun_tpu_torch.eval import _native
 from monorun_tpu_torch.eval import rotated_iou_np as tri
 
+from torch_share import cpu_share  # noqa: F401
+
 # the modules (each package's eval/__init__.py binds the name to the function)
 jke = importlib.import_module("monorun_tpu.eval.kitti_eval")
 tke = importlib.import_module("monorun_tpu_torch.eval.kitti_eval")

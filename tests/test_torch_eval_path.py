@@ -44,6 +44,7 @@ from monorun_tpu_torch.utils.weights import from_jax_params
 
 from test_torch_modules import jax_mc_masks
 from test_torch_serve import H, W, jax_variables, tiny_config
+from torch_share import cpu_share  # noqa: F401
 
 B = 2
 N_IMAGES = 5          # batches of 2: the last one wraps to the front

@@ -59,6 +59,7 @@ from test_torch_modules import _randomize, jax_mc_masks
 from test_torch_serve import _close
 from test_torch_train_step import (AFTER_PNP, LOSSES, _flat, _rel, jax_train_draws,
                                    proposal_count, tiny_train_config)
+from torch_share import cpu_share  # noqa: F401
 
 B = 2
 PRESETS = ("kitti_multiclass_fast", "kitti_multiclass_fast_r50", "kitti_multiclass_fast2",
@@ -176,15 +177,18 @@ def recording_choices(into):
     return spy
 
 
-@pytest.fixture(scope="module")
-def served():
-    """Every rung served by both packages; ``_fast3_r50`` served by the
-    port twice, with the switch at and just above its B x proposals (the
-    band route's choice needs ``MONORUN_BAND_TIERED`` to differ from the
-    sorted one's on the card)."""
+def serve_rungs(rungs):
+    """``rungs`` served by both packages (the JAX key of each, ``PRNGKey(1 +
+    its place in RUNGS)``); ``_fast3_r50`` served by the port twice, with
+    the switch at and just above its B x proposals (the band route's choice
+    needs ``MONORUN_BAND_TIERED`` to differ from the sorted one's on the
+    card). The served tests are in ``tests/test_torch_fast_presets_serve.py``
+    and ``tests/test_torch_fast_presets_serve_fast.py``: files of at most 5
+    tests, which xdist hands out after ``tests/test_train_step.py``
+    (ROADMAP's test-time budget)."""
     out = {}
-    for i, rung in enumerate(RUNGS):
-        jdet, draws = serve_jax(rung, jax.random.PRNGKey(1 + i))
+    for rung in rungs:
+        jdet, draws = serve_jax(rung, jax.random.PRNGKey(1 + list(RUNGS).index(rung)))
         if rung != "fast3_r50":
             out[rung] = (jdet, serve_port(rung, draws))
             continue
@@ -200,12 +204,10 @@ def served():
     return out
 
 
-SERVED = ("fast", "fast2", "fast3_r50_at", "fast3_r50_below")
-
-
-@pytest.mark.parametrize("case", SERVED)
-def test_serve_raw_matches_jax(served, case):
-    jdet, tdet = served[case][:2]
+def check_served(jdet, tdet, case):
+    """A served case against JAX's: labels and validity exact, 2D boxes and
+    scores to 1e-5 of their scale, 3D boxes, covariances and debug maps to
+    1e-3; real detections, and none past the head slots."""
     np.testing.assert_array_equal(tdet.labels.numpy(), np.asarray(jdet.labels))
     np.testing.assert_array_equal(tdet.valid.numpy(), np.asarray(jdet.valid))
     _close(tdet.bboxes_2d, jdet.bboxes_2d, 1e-5)
@@ -214,37 +216,10 @@ def test_serve_raw_matches_jax(served, case):
     _close(tdet.pose_cov, jdet.pose_cov, 1e-3)
     for k in ("oc_maps", "std_maps", "latent_vecs"):
         _close(tdet.extras[k], jdet.extras[k], 1e-3)
-    # the case compares real detections, and none past the head slots
     rung = case.replace("_at", "").replace("_below", "")
     K = RUNGS[rung]["slots"]
     valid = tdet.valid.numpy()
     assert valid[:, :K].any() and not valid[:, K:].any()
-
-
-def test_no_carafe_rung_serves_roi_sized_maps(served):
-    """dense_size == roi_size: no CARAFE, 14x14 NOC and uncertainty maps in
-    every slot, and so a 196-point PnP (its RANSAC keys, JAX's, are 196
-    wide)."""
-    for case, rung in (("fast2", "fast2"), ("fast3_r50_at", "fast3_r50")):
-        cfg = tiny_rung(tget_config, rung)
-        assert MonoRUn(cfg).roi_head.noc_head.upsample is None
-        tdet = served[case][1]
-        M = cfg.test.max_per_img
-        assert tdet.extras["oc_maps"].shape == (B, M, 14, 14, 3), case
-        assert tdet.extras["std_maps"].shape == (B, M, 14, 14, 2), case
-
-
-def test_proposal_align_at_and_below_the_switch(served):
-    """The port's dispatch in the served forward: the proposal align
-    counts B x proposals RoIs, takes the band route at the switch and the
-    sorted one just below it; the detection aligns (B x head slots) never
-    do. Both runs give JAX's detections (test above)."""
-    n = B * RUNGS["fast3_r50"]["proposals"]
-    slots = B * RUNGS["fast3_r50"]["slots"]
-    at, below = served["fast3_r50_at"][2], served["fast3_r50_below"][2]
-    assert [c[0] for c in at] == [n, slots, slots] == [c[0] for c in below]
-    assert [c[1] for c in at] == ["tiered", "kernel", "kernel"]
-    assert [c[1] for c in below] == ["kernel", "kernel", "kernel"]
 
 
 def jax_route(monkeypatch, n, dtype):

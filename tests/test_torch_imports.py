@@ -2,7 +2,9 @@
 
 A fresh interpreter with both names blocked in ``sys.modules`` imports
 every module of ``monorun_tpu_torch``; and no source file of the package
-names either in an import statement.
+names either in an import statement. And every port test file that runs
+torch takes its thread share from ``tests/torch_share.py`` (read from the
+sources).
 """
 
 import ast
@@ -106,3 +108,56 @@ def test_card_scripts_import_neither_jax_nor_the_reference(script):
     out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+TESTS = PKG.parent / "tests"
+JAX_ERA = ("test_torch_parity.py",)        # in the repository before the port began
+SHARE_EXEMPT = {
+    "test_torch_imports.py": "reads sources; torch runs only in the fresh interpreters "
+                             "it starts, which import and compute nothing",
+}
+
+
+def takes_the_share(source: str) -> bool:
+    """Whether a test module imports ``cpu_share`` from ``torch_share`` at
+    its top level (so the module-scoped autouse fixture is its own) and
+    defines no ``cpu_share`` of its own; ``True`` for a module that imports
+    neither torch nor the port."""
+    body = ast.parse(source).body
+    mods = {(a.name if isinstance(n, ast.Import) else n.module or "").split(".")[0]
+            for n in body if isinstance(n, (ast.Import, ast.ImportFrom))
+            for a in n.names}
+    if not mods & {"torch", "monorun_tpu_torch"}:
+        return True
+    shared = any(isinstance(n, ast.ImportFrom) and n.module == "torch_share"
+                 and "cpu_share" in [a.name for a in n.names] for n in body)
+    own = any(isinstance(n, ast.FunctionDef) and n.name == "cpu_share" for n in body)
+    return shared and not own
+
+
+def test_every_port_test_file_takes_the_thread_share():
+    """Under xdist each worker takes its share of torch's threads from the
+    one fixture: a port test file that imports torch or the port and does
+    not is listed, with its reason, in ``SHARE_EXEMPT``."""
+    files = sorted(p.name for p in TESTS.glob("test_torch_*.py") if p.name not in JAX_ERA)
+    assert set(SHARE_EXEMPT) <= set(files)
+    without = [f for f in files if f not in SHARE_EXEMPT
+               and not takes_the_share((TESTS / f).read_text())]
+    assert not without, f"no cpu_share from tests/torch_share.py: {without}"
+    fixture = ast.parse((TESTS / "torch_share.py").read_text()).body
+    (share,) = [n for n in fixture if isinstance(n, ast.FunctionDef) and n.name == "cpu_share"]
+    assert ast.unparse(share.decorator_list[0]) == \
+        "pytest.fixture(scope='module', autouse=True)"
+
+
+@pytest.mark.parametrize("source,takes", [
+    ("import torch\n", False),
+    ("import torch\nfrom torch_share import cpu_share\n", True),
+    ("from monorun_tpu_torch import train\n", False),
+    ("import torch\nfrom torch_share import cpu_share\n\ndef cpu_share():\n    pass\n",
+     False),
+    ("import torch\n\ndef f():\n    from torch_share import cpu_share\n", False),
+    ("import numpy\n", True),
+])
+def test_the_share_guard_reads_imports(source, takes):
+    assert takes_the_share(source) is takes

@@ -9,6 +9,7 @@ summation order.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +49,8 @@ from monorun_tpu_torch.ops import nms as tnms
 from monorun_tpu_torch.ops import rotated_iou as triou
 from monorun_tpu_torch.utils.weights import from_jax_params
 
+from torch_share import cpu_share  # noqa: F401
+
 CFG = get_config("kitti_multiclass")
 TCFG = tget_config("kitti_multiclass")
 
@@ -81,6 +84,13 @@ def _randomize(variables, seed=0):
         return x
 
     return jax.tree_util.tree_map_with_path(f, jax.tree.map(np.asarray, variables))
+
+
+def jitted(fn, *args, **kw):
+    """``fn(*args, **kw)`` as one ``jax.jit`` program with the keywords closed
+    over: one compile, where an eager call compiles and dispatches each op
+    (a flax ``init`` runs the whole forward too)."""
+    return jax.jit(functools.partial(fn, **kw))(*args)
 
 
 def _load(module, variables, jax_name, torch_prefix):
@@ -269,8 +279,8 @@ def _nhwc_feats(seed, shapes):
 def test_resnet_frozen_bn():
     img = _nhwc_feats(6, [(1, 64, 96, 3)])[0]
     jm = jresnet.ResNet(depth=26)
-    v = _randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(img)), seed=6)
-    ref = jm.apply(v, jnp.asarray(img))
+    v = _randomize(jitted(jm.init, jax.random.PRNGKey(0), jnp.asarray(img)), seed=6)
+    ref = jitted(jm.apply, v, jnp.asarray(img))
     tm = _load(tresnet.ResNet(depth=26), v, "backbone", "backbone.")
     with torch.no_grad():
         got = tm(_t(img))
@@ -284,8 +294,8 @@ def test_fpn_plus(lazy):
     jax.image.resize(bilinear) everywhere, the image border included."""
     ins = _nhwc_feats(7, [(1, 16, 24, 32), (1, 8, 12, 48), (1, 4, 6, 64), (1, 2, 3, 80)])
     jm = jfpn.FPNplus(out_channels=16, num_outs=5, num_lower_outs=1, lazy_lower=lazy)
-    v = _randomize(jm.init(jax.random.PRNGKey(1), [jnp.asarray(x) for x in ins]), 7)
-    ref = jm.apply(v, [jnp.asarray(x) for x in ins])
+    v = _randomize(jitted(jm.init, jax.random.PRNGKey(1), [jnp.asarray(x) for x in ins]), 7)
+    ref = jitted(jm.apply, v, [jnp.asarray(x) for x in ins])
     tm = _load(tfpn.FPNplus((32, 48, 64, 80), 16, 5, 1, lazy), v, "neck", "neck.")
     with torch.no_grad():
         got = tm([_t(x) for x in ins])
@@ -307,8 +317,8 @@ def test_rpn_head_and_proposals():
     feats = _nhwc_feats(8, [(2, 16, 32, 16), (2, 8, 16, 16), (2, 4, 8, 16),
                             (2, 2, 4, 16), (2, 1, 2, 16)])
     jm = jrpn.RPNHead(feat_channels=16, num_anchors=3)
-    v = _randomize(jm.init(jax.random.PRNGKey(2), [jnp.asarray(f) for f in feats]), 8)
-    jc, jr = jm.apply(v, [jnp.asarray(f) for f in feats])
+    v = _randomize(jitted(jm.init, jax.random.PRNGKey(2), [jnp.asarray(f) for f in feats]), 8)
+    jc, jr = jitted(jm.apply, v, [jnp.asarray(f) for f in feats])
     tm = _load(trpn.RPNHead(16, 16, 3), v, "rpn_head", "rpn_head.")
     with torch.no_grad():
         tc, tr = tm([_t(f) for f in feats])
@@ -317,8 +327,8 @@ def test_rpn_head_and_proposals():
     # proposals from the same (JAX) head outputs on both sides
     shapes = np.array([[60.0, 120.0], [64.0, 128.0]], np.float32)
     rcfg = dataclasses.replace(CFG.rpn, nms_thr=0.7)
-    ref = jrpn.get_proposals(jc, jr, rcfg, (64, 128), 40, 50,
-                             valid_shapes=jnp.asarray(shapes))
+    ref = jitted(lambda c, r, v: jrpn.get_proposals(c, r, rcfg, (64, 128), 40, 50,
+                                                    valid_shapes=v), jc, jr, jnp.asarray(shapes))
     got = trpn.get_proposals([_t(c) for c in jc], [_t(r) for r in jr],
                              dataclasses.replace(TCFG.rpn, nms_thr=0.7),
                              (64, 128), 40, 50, valid_shapes=_t(shapes))
@@ -335,8 +345,8 @@ def _small_head_cfg(cfg):
 def test_bbox_head_and_det_bboxes():
     x = _nhwc_feats(9, [(12, 7, 7, 16)])[0]
     jm = jbbox.BBoxHead(_small_head_cfg(CFG))
-    v = _randomize(jm.init(jax.random.PRNGKey(3), jnp.asarray(x)), 9)
-    jc, jd = jm.apply(v, jnp.asarray(x))
+    v = _randomize(jitted(jm.init, jax.random.PRNGKey(3), jnp.asarray(x)), 9)
+    jc, jd = jitted(jm.apply, v, jnp.asarray(x))
     tm = _load(tbbox.BBoxHead(_small_head_cfg(TCFG)), v, "bbox_head",
                "roi_head.bbox_head.")
     with torch.no_grad():
@@ -385,8 +395,9 @@ def test_global_head_with_injected_masks():
     x = _nhwc_feats(10, [(6, 7, 7, 16)])[0]
     jm = jglobal.GlobalHead(gcfg)
     key = jax.random.PRNGKey(4)
-    v = _randomize(jm.init(jax.random.PRNGKey(5), jnp.asarray(x), train=False, rng=key), 10)
-    ref = jm.apply(v, jnp.asarray(x), train=False, rng=key)
+    v = _randomize(jitted(jm.init, jax.random.PRNGKey(5), jnp.asarray(x), train=False, rng=key),
+                   10)
+    ref = jitted(jm.apply, v, jnp.asarray(x), train=False, rng=key)
     masks = jax_mc_masks(gcfg, key, 6, 16)
     tg = dataclasses.replace(TCFG.global_head, in_channels=16,
                              fc_out_channels=32, mc_samples=5)
@@ -435,8 +446,8 @@ def test_noc_head():
     flip = np.array([False, True, False, True, False])
     jm = jnoc.NOCHead(ncfg)
     args = (jnp.asarray(x), jnp.asarray(latent), jnp.asarray(labels), jnp.asarray(flip))
-    v = _randomize(jm.init(jax.random.PRNGKey(6), *args, train=False), 12)
-    ref = jm.apply(v, *args, train=False)
+    v = _randomize(jitted(jm.init, jax.random.PRNGKey(6), *args, train=False), 12)
+    ref = jitted(jm.apply, v, *args, train=False)
     tcfg = dataclasses.replace(TCFG.noc_head, in_channels=16, conv_out_channels=16,
                                carafe_compressed_channels=8, roi_size=6, dense_size=12)
     tm = _load(tnoc.NOCHead(tcfg), v, "noc_head", "roi_head.noc_head.")
@@ -457,8 +468,8 @@ def test_score_head():
            rng.normal(size=(n, 4, 4)), rng.uniform(0.5, 4, (n, 3)))
     ins = [a.astype(np.float32) for a in ins]
     jm = jscore.ScoreHead(scfg)
-    v = _randomize(jm.init(jax.random.PRNGKey(7), *map(jnp.asarray, ins)), 14)
-    ref = jm.apply(v, *map(jnp.asarray, ins))
+    v = _randomize(jitted(jm.init, jax.random.PRNGKey(7), *map(jnp.asarray, ins)), 14)
+    ref = jitted(jm.apply, v, *map(jnp.asarray, ins))
     tm = _load(tscore.ScoreHead(dataclasses.replace(
         TCFG.score_head, reg_fc_out_channels=32, pose_fc_out_channels=32,
         fc_out_channels=16)), v, "score_head", "roi_head.score_head.")

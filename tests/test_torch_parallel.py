@@ -37,10 +37,13 @@ pose norm's running statistics.
 index gathered once; each rank's results bitwise equal to a one-process
 ``run_eval`` over that rank's ``dataset_shard`` (the same batches and
 per-batch seeds); the AP dict that of ``ds.evaluate`` on the gathered list.
+And ``train_detector`` at 2 ranks for one step with its validation on a
+4-image small KITTI directory: each rank detects one of a one-process
+run's batches, and the AP that rank 0 logs, and the gathered results,
+equal a one-process ``_run_val`` on the trained weights, bitwise.
 
-(d) ``tools.train --distributed`` and ``tools.test --distributed`` under
-``python -m torch.distributed.run --nproc-per-node 2`` with ``--device
-cpu``; ``tools.test`` refuses a batch that does not divide over the ranks.
+(d) The CLIs under ``torch.distributed.run`` are in
+``tests/test_torch_parallel_cli.py``.
 
 Tolerances: losses and ``mean_iou`` (the ranks' values summed) to 1e-5
 relative; each gradient to 1e-5 of its leaf's largest entry (the batch's
@@ -60,9 +63,7 @@ ranks bitwise.
 """
 
 import dataclasses
-import json
 import os
-import shutil
 import socket
 import subprocess
 import sys
@@ -79,7 +80,9 @@ from monorun_tpu.parallel import dataset_shard as jdataset_shard
 from monorun_tpu_torch import parallel
 from monorun_tpu_torch import train as ttrain
 from monorun_tpu_torch.apis import test as tapi_test
+from monorun_tpu_torch.apis import train as tapi_train
 from monorun_tpu_torch.apis.inference import InferenceSession
+from monorun_tpu_torch.config import apply_overrides
 from monorun_tpu_torch.config import get_config as tget_config
 from monorun_tpu_torch.data.kitti import KITTI3DDataset
 from monorun_tpu_torch.models.detector import MonoRUn, init_random_weights
@@ -87,11 +90,12 @@ from monorun_tpu_torch.utils.draws import train_draws
 from monorun_tpu_torch.utils.synthetic import synthetic_scene_batch, synthetic_train_batch
 
 from test_dist_eval import _simulate_multiprocess_gather
-from test_torch_eval_path import TINY_OPTIONS, configs
-from test_torch_train_entry import TINY_OPTIONS as TRAIN_OPTIONS
-from test_torch_train_loop import cpu_share, write_small_kitti  # noqa: F401
+from test_torch_eval_path import configs
+from test_torch_train_cli import NARROW_OPTIONS
+from test_torch_train_loop import small_data, write_small_kitti
 from test_torch_train_step import tiny_train_config
 from torch_parallel_child import gather_cases, run_step, run_units, score_head_on_rows
+from torch_share import cpu_share  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 CHILD = Path(__file__).resolve().parent / "torch_parallel_child.py"
@@ -100,6 +104,7 @@ SCORE_DTYPES = {"torch.float64": 1e-9, "torch.float32": 1e-4}
 WORLD = 2
 B, H, W = 4, 64, 128            # the global batch: 2 images per rank
 EVAL_IMAGES, EVAL_BATCH = 5, 2  # shards of 3 and 2 images: the second rank pads one
+VAL_IMAGES = 4                  # the loop's validation: a batch of 2 for each rank
 TIMEOUT = 600
 UNIT_SUMS = ("avg_factor", "weighted", "unweighted", "kl")   # the ranks' shares sum
 UNIT_EQUAL = ("kl_ema", "bn_mean", "bn_var")                # every rank holds the global
@@ -157,10 +162,26 @@ def make_job(tmp: Path, threads: int):
     emodel = init_random_weights(MonoRUn(ecfg), torch.Generator().manual_seed(3))
     with np.load(SCORE_ROWS) as f:
         rows = {k: torch.from_numpy(v) for k, v in f.items()}
+    val_root = tmp / "small_kitti"
+    write_small_kitti(str(val_root), VAL_IMAGES)
     return dict(threads=threads, sd=model.state_dict(), steps=steps, units=unit_inputs(),
                 score_cfg=cfg.score_head,
                 score_rows=dict(rows=rows, cfg=tget_config("kitti_multiclass").score_head),
-                eval=dict(cfg=ecfg, sd=emodel.state_dict(), root=str(root), batch=EVAL_BATCH))
+                eval=dict(cfg=ecfg, sd=emodel.state_dict(), root=str(root), batch=EVAL_BATCH),
+                val_loop=dict(cfg=val_loop_config(val_root), root=str(val_root),
+                              work=str(tmp / "val_work")))
+
+
+def val_loop_config(root):
+    """``test_torch_train_step.py``'s tiny configuration at
+    ``test_torch_train_cli.py``'s narrow widths on ``root``'s small KITTI
+    directory (train and validation sets), one image per rank, a validation
+    every epoch."""
+    cfg = small_data(apply_overrides(tiny_train_config(tget_config), NARROW_OPTIONS), root)
+    r = dataclasses.replace
+    return r(cfg, train=r(cfg.train, samples_per_device=1, total_epochs=1,
+                          checkpoint_interval=0, eval_interval=1, log_interval=1,
+                          tensorboard=False))
 
 
 class Recording(KITTI3DDataset):
@@ -179,6 +200,17 @@ def one_process_eval(ev, shard_of):
     with mock.patch.object(tapi_test, "dataset_shard", shard_of):
         ap = tapi_test.run_eval(session, ds, batch_size=ev["batch"], print_summary=False,
                                 progress=False, distributed=True)
+    return ds.results, ap
+
+
+def one_process_val(job, sd):
+    """The training loop's validation (``apis/train.py:_run_val``) in this
+    process (world size 1) on the weights ``sd``: (results, AP)."""
+    cfg = job["cfg"]
+    model = MonoRUn(cfg)
+    model.load_state_dict(sd)
+    ds = Recording(job["root"], "train_list.txt")
+    ap = tapi_train._run_val(cfg, model, ds)
     return ds.results, ap
 
 
@@ -208,6 +240,9 @@ def ranks(tmp_path_factory):
         shard_runs = [one_process_eval(job["eval"], lambda n, r=r: parallel.dataset_shard(
             n, r, WORLD)) for r in range(WORLD)]
         outs = [p.communicate(timeout=TIMEOUT)[0] for p in procs]
+        if all(p.returncode == 0 for p in procs):
+            val_ref = one_process_val(job["val_loop"], torch.load(
+                tmp / "rank0.pt", weights_only=False)["val_loop"]["sd"])
     finally:
         torch.set_num_threads(saved[0])
         torch.use_deterministic_algorithms(saved[1])
@@ -221,7 +256,7 @@ def ranks(tmp_path_factory):
     got = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
     grads = torch.load(tmp / "rank0_grads.pt", weights_only=False)
     return dict(job=job, ref=ref, units=units, ranks=got, grads=grads, shard_runs=shard_runs,
-                score_rows=score_rows)
+                score_rows=score_rows, val_ref=val_ref)
 
 
 def _rel(got, ref):
@@ -430,74 +465,22 @@ def test_distributed_ap_is_evaluate_of_the_gathered_list(ranks):
         assert all(r["eval_ap"][k] == v for k, v in want.items())
 
 
-# ---- (d) the CLIs under torch.distributed.run ------------------------------------------
-
-
-def torchrun(module, args, cwd, timeout=TIMEOUT):
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(WORLD),
-           "--master-addr", "127.0.0.1", "--master-port", str(free_port()), "-m", module,
-           *args]
-    env = child_env()
-    env["OMP_NUM_THREADS"] = str(max(1, torch.get_num_threads() // WORLD))
-    out = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True,
-                         timeout=timeout)
-    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
-    return out
-
-
-def test_tools_train_distributed_two_ranks(tmp_path):
-    """Two CPU ranks over Gloo, a global batch of 4 (2 per rank), an epoch
-    of 2 steps with a checkpoint, a validation and a log record a step:
-    rank 0 alone writes the log and the checkpoint."""
-    root, work = tmp_path / "kitti", tmp_path / "work"
-    write_small_kitti(str(root), 8)
-    opts = [f"data.train_root='{root}'", "data.train_list='train_list.txt'",
-            "data.val_list='train_list.txt'", *TRAIN_OPTIONS, "train.total_epochs=1"]
-    out = torchrun("monorun_tpu_torch.tools.train",
-                   ["kitti_multiclass_lidar_supv", "--device", "cpu", "--distributed",
-                    "--work-dir", str(work), "--max-steps", "2", "--cfg-options", *opts], REPO)
-    log = [json.loads(ln) for ln in (work / "train_log.jsonl").read_text().splitlines()]
-    assert [r["step"] for r in log] == [1, 2], log   # 8 images: 2 global batches of 4
-    assert all(np.isfinite(v) for r in log for v in r.values())
-    assert sorted(os.listdir(work)) == ["config.txt", "step_2", "train_log.jsonl"]
-    assert os.listdir(work / "step_2") == ["checkpoint.pt"]
-    assert out.stdout.count("[e0 it2]") == 1, out.stdout    # one rank logged
-    shutil.rmtree(work)
-
-
-def test_tools_test_distributed_two_ranks(tmp_path):
-    root = tmp_path / "kitti"
-    make_mini_kitti(str(root), n_images=EVAL_IMAGES, seed=1)
-    summary, results = tmp_path / "ap.json", tmp_path / "results"
-    torchrun("monorun_tpu_torch.tools.test",
-             ["kitti_multiclass", "--val-set", "--device", "cpu", "--distributed",
-              "--batch-size", "4", "--summary-file", str(summary), "--result-dir",
-              str(results), "--cfg-options", f"data.train_root='{root}'",
-              "data.val_list='train_list.txt'", *TINY_OPTIONS], REPO)
-    ap = json.loads(summary.read_text())
-    assert ap and all(np.isfinite(v) for v in ap.values())
-    assert len(os.listdir(results)) == EVAL_IMAGES
-
-
-def test_tools_test_refuses_a_batch_that_does_not_divide(monkeypatch):
-    from monorun_tpu_torch.tools import test as tools_test
-
-    for k, v in dict(RANK="0", WORLD_SIZE="2", LOCAL_RANK="0", LOCAL_WORLD_SIZE="2",
-                     MASTER_ADDR="127.0.0.1", MASTER_PORT="1").items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit, match="--batch-size 3 must be a multiple of the mesh "
-                                         "size 2"):
-        tools_test.main(["kitti_multiclass", "--device", "cpu", "--distributed",
-                         "--batch-size", "3"])
-    assert parallel.world_size() == 1
-
-
-@pytest.mark.parametrize("tool", ["train", "test"])
-def test_distributed_without_the_launch_environment_raises(monkeypatch, tool):
-    import importlib
-
-    for k in parallel.mesh.LAUNCH_ENV:
-        monkeypatch.delenv(k, raising=False)
-    main = importlib.import_module(f"monorun_tpu_torch.tools.{tool}").main
-    with pytest.raises(RuntimeError, match="torch.distributed.run"):
-        main(["kitti_multiclass", "--device", "cpu", "--distributed"])
+def test_train_detector_validates_on_every_rank(ranks):
+    """``train_detector``'s validation at two ranks: each rank detects one
+    of the two batches of 2 that a one-process run makes, with that run's
+    seed (the batch's first index), and the AP that rank 0 alone logs,
+    and every rank evaluated, is a one-process ``_run_val``'s on the same
+    weights, per-image results bitwise."""
+    loops = [r["val_loop"] for r in ranks["ranks"]]
+    assert [v["runs"] for v in loops] == [[(0, 2)], [(2, 2)]]
+    assert [len(v["logged"]) for v in loops] == [1, 0]
+    step, ap = loops[0]["logged"][0]
+    results, want = ranks["val_ref"]
+    assert step == 1 and list(ap) == list(want) and ap == want
+    assert sum(int(r["valid"].sum()) for r in results) >= VAL_IMAGES
+    for v in loops:
+        (gathered,) = v["results"]
+        assert len(gathered) == len(results) == VAL_IMAGES
+        for got, ref in zip(gathered, results):
+            assert sorted(got) == sorted(ref)
+            assert all(np.array_equal(got[k], ref[k]) for k in ref)

@@ -27,8 +27,9 @@ from monorun_tpu_torch.models.rpn import get_proposals
 from monorun_tpu_torch.utils.draws import TrainDraws, train_draws
 from monorun_tpu_torch.utils.synthetic import synthetic_train_batch
 
-from test_torch_train_loop import cpu_share, small_data, write_small_kitti  # noqa: F401
+from test_torch_train_loop import small_data, write_small_kitti
 from test_torch_train_step import tiny_train_config
+from torch_share import cpu_share  # noqa: F401
 
 PER_IMAGE = ("rpn_noise", "rcnn_noise", "rcnn_noise_refined")
 

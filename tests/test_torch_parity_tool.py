@@ -43,7 +43,7 @@ from monorun_tpu_torch.utils.weights import from_jax_params
 from test_torch_eval_path import TINY_OPTIONS, _self_labelled, assert_result_files_close
 from test_torch_modules import jax_mc_masks
 from test_torch_serve import jax_variables
-from test_torch_train_loop import cpu_share  # noqa: F401
+from torch_share import cpu_share  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 N_IMAGES = 5          # assert_result_files_close's count

@@ -26,7 +26,7 @@ from monorun_tpu_torch.utils import stages
 from torch.profiler import record_function
 
 from test_torch_serve import tiny_config
-from test_torch_train_loop import cpu_share  # noqa: F401
+from torch_share import cpu_share  # noqa: F401
 
 B = 2
 

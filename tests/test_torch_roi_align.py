@@ -13,6 +13,7 @@ plain version on the card in ``test_torch_cuda.py``.
 import dataclasses
 from unittest import mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +25,8 @@ from monorun_tpu.config import get_config
 from monorun_tpu.models.detector import _align_strides
 from monorun_tpu.ops import roi_align as jra
 from monorun_tpu_torch.ops import roi_align as tra
+
+from torch_share import cpu_share  # noqa: F401
 
 STRIDES = (2, 4, 8, 16)
 CAP = 96 - 18
@@ -63,10 +66,10 @@ def _rois(n=24, B=2, H=64, W=128, seed=0):
 
 
 def _jax_align(feats, rois, strides, out_size, finest, max_ratio):
-    return np.asarray(jra.multilevel_roi_align(
-        [jnp.asarray(f) for f in feats], jnp.asarray(rois), strides, out_size,
+    return np.asarray(jax.jit(lambda f, r: jra.multilevel_roi_align(
+        f, r, strides, out_size,
         finest, sampling_ratio=0, max_ratio=max_ratio, long_span_cap=CAP,
-    ))
+    ))([jnp.asarray(f) for f in feats], jnp.asarray(rois)))
 
 
 def _port_align(feats, rois, strides, out_size, finest, max_ratio):
@@ -119,15 +122,15 @@ def test_plain_matches_pallas_kernel(kernel):
     module = ras if kernel == "sorted" else rab
     with _interpret(module):
         if kernel == "sorted":
-            ref = ras.multilevel_roi_align_sorted(
-                jfeats, jnp.asarray(rois), STRIDES, (7, 7), 10.0,
+            ref = jax.jit(lambda f, r: ras.multilevel_roi_align_sorted(
+                f, r, STRIDES, (7, 7), 10.0,
                 max_ratio=3, kroi=4,
-            )
+            ))(jfeats, jnp.asarray(rois))
         else:
-            ref = rab.multilevel_roi_align_band(
-                jfeats, jnp.asarray(rois), STRIDES, (7, 7), 10.0,
+            ref = jax.jit(lambda f, r: rab.multilevel_roi_align_band(
+                f, r, STRIDES, (7, 7), 10.0,
                 max_ratio=3, kroi=4,
-            )
+            ))(jfeats, jnp.asarray(rois))
     got = _port_align(feats, rois, STRIDES, (7, 7), 10.0, 3)
     np.testing.assert_allclose(got, np.asarray(ref), **TOL)
 

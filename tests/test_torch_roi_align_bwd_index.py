@@ -22,6 +22,8 @@ import torch
 
 from monorun_tpu_torch.ops import roi_align as ra
 
+from torch_share import cpu_share  # noqa: F401
+
 STRIDES = (4, 4, 8, 16, 32)
 CANVAS = (384, 1280)
 BATCH = 3

@@ -25,6 +25,8 @@ from monorun_tpu_torch.ops import roi_align_band as rb
 from monorun_tpu_torch.ops import roi_align_cuda as rc
 from monorun_tpu_torch.ops import roi_align_tile as rt
 
+from torch_share import cpu_share  # noqa: F401
+
 STRIDES = (4, 4, 8, 16, 32)
 B, H, W, C = 2, 64, 128, 8
 EDGES = np.array(

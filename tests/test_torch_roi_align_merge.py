@@ -24,6 +24,8 @@ import torch
 from monorun_tpu.ops import roi_align as jra
 from monorun_tpu_torch.ops import roi_align as tra
 
+from torch_share import cpu_share  # noqa: F401
+
 STRIDES = (4, 4, 8, 16)
 H, W, C, B = 64, 640, 8, 2
 CAP = 96 - 18

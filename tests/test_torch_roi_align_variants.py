@@ -7,7 +7,8 @@ fields exactly and Y, X to 1e-6; the band slots (every array the Pallas
 call receives, captured by a stand-in for ``pallas_call``) exactly, and
 their Y, X to 1e-6. Each kernel's plain version, run on the port's own
 prepared slots, is held to the JAX Pallas kernel in interpret mode and to
-the JAX gather oracle at rtol = atol = 2e-5 in float32 (summation order).
+the JAX gather oracle at rtol = atol = 2e-5 in float32 (summation order;
+that test is ``tests/test_torch_roi_align_kernels.py``).
 The CUDA kernels are held to these plain versions on the card in
 ``test_torch_cuda.py``.
 
@@ -17,6 +18,7 @@ of ``test_torch_roi_align.py``.
 
 from unittest import mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +32,7 @@ from monorun_tpu_torch.ops import roi_align_band as tband
 from monorun_tpu_torch.ops import roi_align_tile as ttile
 
 from test_torch_roi_align import CAP, STRIDES, TOL, _interpret, _pyramid, _rois
+from torch_share import cpu_share  # noqa: F401
 
 CASES = [((7, 7), 10.0, 3), ((14, 14), 14.0, 2)]
 MODES = {
@@ -152,41 +155,6 @@ def test_packed_needs_whole_groups():
     assert call.mode == "tiered"
 
 
-@pytest.mark.parametrize("variant", ["tile", "plain", "tiered", "packed", "matmul"])
-def test_plain_versions_match_pallas_kernels(variant):
-    """Each staged kernel's plain version on the port's slots against the
-    JAX Pallas kernel in interpret mode and the JAX gather oracle; the
-    staged core's product (``union_product``) against the Pallas kernel."""
-    feats, rois = _pyramid(), _rois()
-    out_size, finest, max_ratio = (7, 7), 10.0, 3
-    if variant == "tile":
-        call = ttile.prepare_tile_call(_t(feats), torch.from_numpy(rois), STRIDES,
-                                       out_size, finest, max_ratio)
-        got = ttile.run_tile_call(call).numpy()
-        with _interpret(jtile):
-            ref = jtile.multilevel_roi_align_pallas(
-                _j(feats), jnp.asarray(rois), STRIDES, out_size, finest,
-                max_ratio=max_ratio, kroi=1)   # interpret mode: kroi=1 traces fastest
-    else:
-        call = tband.prepare_band_call(_t(feats), torch.from_numpy(rois), STRIDES,
-                                       out_size, finest, max_ratio, kroi=4,
-                                       **MODES[variant])
-        got = tband.run_band_call(call).numpy()
-        with _interpret(jband):
-            ref = jband.multilevel_roi_align_band(
-                _j(feats), jnp.asarray(rois), STRIDES, out_size, finest,
-                max_ratio=max_ratio, kroi=4, **MODES[variant])
-    oracle = jra.multilevel_roi_align(_j(feats), jnp.asarray(rois), STRIDES, out_size,
-                                      finest, sampling_ratio=0, max_ratio=max_ratio,
-                                      long_span_cap=CAP)
-    assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
-    np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
-    if variant != "plain":
-        # the staged core's product (csrc/roi_align_ring.cuh) on the same slots
-        np.testing.assert_allclose(tband.union_product(call).numpy(), np.asarray(ref), **TOL)
-
-
 @pytest.mark.parametrize("out_size,finest,max_ratio", CASES)
 def test_band_variants_match_gather(out_size, finest, max_ratio):
     """Every band mode and the tile version through the public functions
@@ -301,8 +269,8 @@ def test_lazy_level_slivers_overrun_the_tile():
     got = tband.multilevel_roi_align_band(_t(feats), torch.from_numpy(rois), *args,
                                           max_ratio=6, kroi=4).numpy()
     with _interpret(jband):
-        ref = jband.multilevel_roi_align_band(_j(feats), jnp.asarray(rois), *args,
-                                              max_ratio=6, kroi=4)
+        ref = jax.jit(lambda f, r: jband.multilevel_roi_align_band(
+            f, r, *args, max_ratio=6, kroi=4))(_j(feats), jnp.asarray(rois))
     np.testing.assert_allclose(got, np.asarray(ref), **TOL)
     gather = tra.multilevel_roi_align(_t(feats), torch.from_numpy(rois), *args, max_ratio=6,
                                       long_span_cap=CAP).numpy()

@@ -29,6 +29,7 @@ from monorun_tpu_torch.models.detector import HeadDraws, MonoRUn
 from monorun_tpu_torch.utils.weights import from_jax_params
 
 from test_torch_modules import _randomize, jax_mc_masks
+from torch_share import cpu_share  # noqa: F401
 
 B, H, W = 2, 64, 128
 

@@ -19,6 +19,8 @@ from monorun_tpu.ops import rotated_iou as jri
 from monorun_tpu_torch.ops import linalg_small as tla
 from monorun_tpu_torch.ops import rotated_iou as tri
 
+from torch_share import cpu_share  # noqa: F401
+
 IOU_ATOL = 1e-5
 LINALG_RTOL = 1e-4
 

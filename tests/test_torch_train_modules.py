@@ -46,7 +46,8 @@ from monorun_tpu_torch.targets import dense_target as tdense
 from monorun_tpu_torch.targets import rpn_targets as trpn
 from monorun_tpu_torch.targets import sampler as tsampler
 
-from test_torch_modules import _load, _randomize
+from test_torch_modules import _load, _randomize, jitted
+from torch_share import cpu_share  # noqa: F401
 
 CFG = get_config("kitti_multiclass")
 TCFG = tget_config("kitti_multiclass")
@@ -300,7 +301,7 @@ def test_rpn_loss_with_the_jax_noise():
     pairs = [jax.random.split(k) for k in jax.random.split(key, B)]
     noise = tuple(_t(np.stack([np.asarray(jax.random.uniform(p[i], (n,))) for p in pairs]))
                   for i in (0, 1))
-    (_, jout), (gc, gr) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+    (_, jout), (gc, gr) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
         [jnp.asarray(c) for c in cls], [jnp.asarray(r) for r in reg])
     tc = [_t(c, grad=True) for c in cls]
     trg = [_t(r, grad=True) for r in reg]
@@ -378,8 +379,9 @@ def test_global_head_train_sample_with_the_jax_masks():
     x = rng.normal(size=(6, 7, 7, 16)).astype(np.float32)
     jm = jglobal.GlobalHead(gcfg)
     key = jax.random.PRNGKey(12)
-    v = _randomize(jm.init(jax.random.PRNGKey(13), jnp.asarray(x), train=False, rng=key), 11)
-    ref = jm.apply(v, jnp.asarray(x), train=True, rng=key)
+    v = _randomize(jitted(jm.init, jax.random.PRNGKey(13), jnp.asarray(x), train=False,
+                          rng=key), 11)
+    ref = jitted(jm.apply, v, jnp.asarray(x), train=True, rng=key)
     r2d, r0, r1 = jax.random.split(key, 3)
     masks = (jax.random.bernoulli(r2d, 1 - gcfg.dropout2d_rate, (6, 16, 1))[..., 0],
              jax.random.bernoulli(r0, 1 - gcfg.dropout_rate, (6, 32)),
@@ -407,8 +409,8 @@ def test_noc_head_dropout2d_with_the_jax_mask():
     jm = jnoc.NOCHead(ncfg)
     args = tuple(map(jnp.asarray, (x, latent, labels, flip)))
     key = jax.random.PRNGKey(15)
-    v = _randomize(jm.init(jax.random.PRNGKey(16), *args, train=False), 14)
-    ref = jm.apply(v, *args, train=True, rng=key)
+    v = _randomize(jitted(jm.init, jax.random.PRNGKey(16), *args, train=False), 14)
+    ref = jitted(jm.apply, v, *args, train=True, rng=key)
     keep = jax.random.bernoulli(key, 0.5, (n, 1, 1, 16)).reshape(n, 16)
     tcfg = dataclasses.replace(TCFG.noc_head, in_channels=16, conv_out_channels=16,
                                carafe_compressed_channels=8, roi_size=6, dense_size=12,
@@ -430,12 +432,12 @@ def test_score_head_train_updates_the_smooth_batchnorm():
            rng.normal(size=(n, 4, 4)), rng.uniform(0.5, 4, (n, 3))]
     ins = [a.astype(np.float32) for a in ins]
     jm = jscore.ScoreHead(scfg)
-    v = _randomize(jm.init(jax.random.PRNGKey(18), *map(jnp.asarray, ins)), 17)
+    v = _randomize(jitted(jm.init, jax.random.PRNGKey(18), *map(jnp.asarray, ins)), 17)
     tcfg = dataclasses.replace(TCFG.score_head, reg_fc_out_channels=32,
                                pose_fc_out_channels=32, fc_out_channels=16)
     for valid in (rng.uniform(size=n) > 0.3, np.eye(n, dtype=bool)[2]):
-        ref, upd = jm.apply(v, *map(jnp.asarray, ins), train=True,
-                            valid=jnp.asarray(valid), mutable=["batch_stats"])
+        ref, upd = jitted(jm.apply, v, *map(jnp.asarray, ins), train=True,
+                          valid=jnp.asarray(valid), mutable=["batch_stats"])
         tm = _load(tscore.ScoreHead(tcfg), v, "score_head", "roi_head.score_head.")
         got = tm(*map(_t, ins), train=True, valid=_t(valid))
         _close(got, ref, 1e-5)

@@ -38,6 +38,7 @@ from monorun_tpu_torch.models.detector import MonoRUn, TrainDraws
 from monorun_tpu_torch.utils.weights import from_jax_train_state, to_jax_leaves
 
 from test_torch_modules import _randomize
+from torch_share import cpu_share  # noqa: F401
 
 B, H, W = 2, 64, 128
 LOSSES = ("loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "loss_bbox", "loss_dim",

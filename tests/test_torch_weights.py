@@ -20,6 +20,7 @@ from monorun_tpu_torch.models.detector import MonoRUn, init_random_weights
 from monorun_tpu_torch.utils.weights import from_jax_params, load_pth
 
 from test_torch_serve import H, W, tiny_config
+from torch_share import cpu_share  # noqa: F401
 
 
 def _port_model(seed=0):

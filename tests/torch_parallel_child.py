@@ -13,6 +13,7 @@ bit-equal (checked here over the group).
 """
 
 import os
+import shutil
 import sys
 from typing import Dict
 
@@ -153,6 +154,39 @@ def gather_cases():
     return out
 
 
+def val_loop(job, rank) -> Dict[str, object]:
+    """``train_detector`` for one step with a validation after it, on the
+    job's small KITTI directory as both sets: the AP records rank 0's logger
+    was given, the (seed, images) of each ``run`` of this rank's validation
+    session, the gathered results its ``evaluate`` saw, and the trained
+    weights."""
+    from unittest import mock
+
+    from monorun_tpu_torch.apis import train as tapi
+    from monorun_tpu_torch.data.kitti import KITTI3DDataset
+
+    logged, runs, seen = [], [], []
+
+    class Session(tapi.InferenceSession):
+        def run(self, images, cam, shapes, seed=0, **kw):
+            runs.append((seed, len(images)))
+            return super().run(images, cam, shapes, seed=seed, **kw)
+
+    class Dataset(KITTI3DDataset):
+        def evaluate(self, results, **kw):
+            seen.append(results)
+            return super().evaluate(results, **kw)
+
+    with mock.patch.object(tapi, "InferenceSession", Session), \
+            mock.patch.object(tapi.MetricLogger, "log_eval",
+                              lambda self, step, ap: logged.append((step, ap))):
+        model, _ = tapi.train_detector(job["cfg"], job["work"], max_steps=1,
+                                       val_ds=Dataset(job["root"], "train_list.txt"),
+                                       device="cpu")
+    return dict(logged=logged, runs=runs, results=seen,
+                sd={k: v.clone() for k, v in model.state_dict().items()})
+
+
 def main(job_path, rank, world, port, out_dir):
     from monorun_tpu_torch import parallel
     from monorun_tpu_torch.apis.inference import InferenceSession
@@ -213,6 +247,11 @@ def main(job_path, rank, world, port, out_dir):
     out["eval_ap"] = run_eval(session, ds, batch_size=ev["batch"], print_summary=False,
                               progress=False, distributed=True)
     out["eval_results"] = seen[0]
+    out["val_loop"] = val_loop(job["val_loop"], rank)
+    if rank == 0:
+        shutil.rmtree(job["val_loop"]["work"])      # its checkpoint
+    else:
+        del out["val_loop"]["sd"]                   # rank 0's, replicated
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     if rank == 0:
         torch.save(grads, os.path.join(out_dir, "rank0_grads.pt"))
