@@ -98,13 +98,24 @@ def timed_run(session: InferenceSession, request, seed: int = 0) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def paired_split(unsplit_ms_each, forward_records) -> float:
+    """The median over forwards of each timed forward's stage sum over the
+    unsplit forward run just before it: a ratio of two forwards taken
+    together, which a slow moment of the host moves less than the ratio of
+    two medians taken apart."""
+    return statistics.median(sum(r["ms"] for r in records) / unsplit
+                             for unsplit, records in zip(unsplit_ms_each, forward_records,
+                                                         strict=True))
+
+
 def ladder(session: InferenceSession, requests, forwards: int = FORWARDS,
            warmup: int = WARMUP) -> dict:
     """The stage ladder over ``forwards`` forwards after ``warmup``: per
     stage the median ms and the launches of the first timed forward
     (``stages``, in run order); the unsplit forward's median ms and the
-    stages' summed ms (``unsplit_ms``, ``stage_sum_ms``); every forward's
-    stage records (``forward_records``)."""
+    stages' summed ms (``unsplit_ms``, ``stage_sum_ms``); the median of
+    each forward's stage sum over its unsplit partner (``paired_split``);
+    every forward's stage records (``forward_records``)."""
     for i in range(warmup):
         session.run(*requests[i % len(requests)], seed=i)
     unsplit, runs = [], []
@@ -124,7 +135,8 @@ def ladder(session: InferenceSession, requests, forwards: int = FORWARDS,
                            launches=recs[0]["launches"]))
     return dict(batch=session.batch_size, forwards=forwards, warmup=warmup, stages=stages,
                 unsplit_ms=statistics.median(unsplit), unsplit_ms_each=unsplit,
-                stage_sum_ms=sum(s["ms"] for s in stages), forward_records=runs)
+                stage_sum_ms=sum(s["ms"] for s in stages),
+                paired_split=paired_split(unsplit, runs), forward_records=runs)
 
 
 def print_ladder(result: dict) -> None:
@@ -136,7 +148,8 @@ def print_ladder(result: dict) -> None:
         print(f"{s['stage']:>16} {s['ms']:10.3f}  {launches}")
     share = result["stage_sum_ms"] / result["unsplit_ms"]
     print(f"{'sum of stages':>16} {result['stage_sum_ms']:10.3f}   unsplit forward "
-          f"{result['unsplit_ms']:.3f} ms ({share:.3f}x)")
+          f"{result['unsplit_ms']:.3f} ms ({share:.3f}x; paired median "
+          f"{result['paired_split']:.3f}x)")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:

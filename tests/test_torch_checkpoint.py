@@ -10,8 +10,7 @@ deterministic algorithms; on the GPU the RoIAlign backward has no atomics
 and repeats bit for bit, but cuDNN's convolution backward does not unless
 ``torch.use_deterministic_algorithms`` is on). Part (c) of
 ``tests/test_torch_train_loop.py``'s plan, in a file of its own of at most
-5 tests, so that xdist hands it out after ``tests/test_train_step.py``
-(ROADMAP's test-time budget).
+3 tests, which xdist hands out late (ROADMAP's test-time budget).
 """
 
 import os

@@ -29,6 +29,7 @@ from monorun_tpu_torch.data import loader as tl
 from monorun_tpu_torch.data import pipeline as tp
 from monorun_tpu_torch.data import transforms as tt
 
+from test_torch_eval import jax_native_built  # noqa: F401  (autouse)
 from torch_share import cpu_share  # noqa: F401
 
 N_IMAGES = 5

@@ -10,7 +10,10 @@ hold the expected values. The port's native statistics path
 rotated-IoU helpers equal the JAX package's copies.
 """
 
+import contextlib
 import importlib
+import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -24,6 +27,36 @@ from torch_share import cpu_share  # noqa: F401
 # the modules (each package's eval/__init__.py binds the name to the function)
 jke = importlib.import_module("monorun_tpu.eval.kitti_eval")
 tke = importlib.import_module("monorun_tpu_torch.eval.kitti_eval")
+
+
+def build_jax_native():
+    """The JAX package's native evaluator (``monorun_tpu/eval/_native``),
+    compiled, if it is missing or older than its source, to a name of this
+    process's own and renamed into place. Its own ``get_lib`` has g++ write
+    the library in place and tries once per process, so a worker that loads
+    it while another writes it gets none, and
+    ``tests/test_kitti_eval.py::test_native_matches_python`` skips there.
+    Where g++ fails, ``get_lib`` is left to try, as before."""
+    from monorun_tpu.eval import _native as jnative
+
+    lib, src = jnative._LIB, jnative._SRC
+    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+        return
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", tmp, src], check=True,
+                       capture_output=True, timeout=120)
+        os.replace(tmp, lib)
+    except (subprocess.SubprocessError, FileNotFoundError):
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(tmp)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_built():
+    """``build_jax_native`` before a module's first JAX evaluation: the port's
+    files that evaluate with JAX early in a run import it."""
+    build_jax_native()
 
 BOX = [100, 100, 200, 200]          # height 100: counts for every difficulty
 N_IMG = 50                          # enough score levels for 41 recall points

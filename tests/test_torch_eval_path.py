@@ -13,11 +13,14 @@ Tolerances as in ``test_torch_serve.py``: labels and validity masks
 exact; 2D boxes to 1e-5 of their scale; 3D boxes, covariances and debug
 maps to 1e-3. Result files are compared field by field at the same
 tolerances (they print 6 decimals), AP dicts to 1e-9.
+
+The cases that run both sessions are in
+``test_torch_eval_path_{forward,run_eval,tools}.py``: files of at most 3 tests,
+which xdist hands out late (ROADMAP's test-time budget).
 """
 
 import dataclasses
 import importlib
-import json
 import os
 import shutil
 
@@ -33,13 +36,11 @@ from monorun_tpu.config import get_config
 from monorun_tpu.data import kitti as jk
 from monorun_tpu.data.pipeline import collate as jcollate
 from monorun_tpu.data.pipeline import prepare_test_sample as jprepare
-from monorun_tpu.utils.visualizer import show_result as jshow_result
 from monorun_tpu_torch.apis import inference as tinf
 from monorun_tpu_torch.apis.test import run_eval as trun_eval
 from monorun_tpu_torch.config import get_config as tget_config
 from monorun_tpu_torch.data import kitti as tk
 from monorun_tpu_torch.models.detector import HeadDraws, MonoRUn
-from monorun_tpu_torch.utils.visualizer import show_result as tshow_result
 from monorun_tpu_torch.utils.weights import from_jax_params
 
 from test_torch_modules import jax_mc_masks
@@ -139,25 +140,6 @@ def _batch(root):
     return jcollate([jprepare(ds, i, jcfg.data) for i in range(B)])
 
 
-def test_forward_matches_jax_call(world):
-    """``MonoRUn.forward`` against ``MonoRUn.__call__`` (the JAX session's
-    program) on one normalised, padded batch, with the JAX draws."""
-    batch = _batch(world["root"])
-    assert batch["images"].shape == (B, H, W, 3)
-    jdet = world["jsess"].run(batch["images"], batch["cam"], batch["img_shapes"], seed=3)
-    sess = world["tsess"]
-    with torch.no_grad():
-        tdet = sess.model(torch.from_numpy(batch["images"]), torch.from_numpy(batch["cam"]),
-                          torch.from_numpy(batch["img_shapes"]), jax_draws(sess.cfg, 3, B))
-    np.testing.assert_array_equal(tdet.labels.numpy(), np.asarray(jdet.labels))
-    np.testing.assert_array_equal(tdet.valid.numpy(), np.asarray(jdet.valid))
-    assert tdet.valid.numpy().sum(1).min() >= 1
-    for k in ("bboxes_2d", "scores_2d", "bboxes_3d", "pose_cov"):
-        _close(getattr(tdet, k).numpy(), getattr(jdet, k), TOL[k], k)
-    for k in ("oc_maps", "std_maps", "latent_vecs"):
-        _close(tdet.extras[k].numpy(), jdet.extras[k], TOL[k], k)
-
-
 def _run_both(world, root, tag):
     """Both packages' run_eval on ``root``: (jax ds, port ds, ap_j, ap_t,
     result dirs)."""
@@ -204,84 +186,6 @@ def _self_labelled(root, result_dir, dest):
     for name in os.listdir(result_dir):
         shutil.copy(os.path.join(result_dir, name), os.path.join(dest, "label_2", name))
     return dest
-
-
-def test_run_eval_matches_jax(world, tmp_path):
-    """The closing test: a mini-KITTI through both packages' run_eval on
-    the CPU gives the same per-image results, result files and AP dict;
-    then again on labels made from those results, where AP is not 0."""
-    jds, tds, ap_j, ap_t, jdir, tdir = _run_both(world, world["root"], "random_labels")
-    assert len(tds.results) == N_IMAGES and all(r is not None for r in tds.results)
-    for i, (got, ref) in enumerate(zip(tds.results, jds.results)):
-        assert_results_close(got, ref, f"image {i}")
-    assert sum(int(r["valid"].sum()) for r in tds.results) >= N_IMAGES
-    assert_result_files_close(tdir, jdir)
-    _, ref_ap = jke.kitti_eval([], [], ("Car", "Pedestrian", "Cyclist"))
-    assert list(ap_j) == list(ref_ap)
-    _assert_ap_equal(ap_t, ap_j)
-
-    root2 = _self_labelled(world["root"], jdir, str(tmp_path / "self_labelled"))
-    _, _, ap_j2, ap_t2, _, _ = _run_both(world, root2, "self_labels")
-    assert max(ap_j2.values()) > 0.0
-    _assert_ap_equal(ap_t2, ap_j2)
-
-
-def test_inference_detector_equals_run_eval(world):
-    """The same files through ``inference_detector`` and through
-    ``run_eval`` with the same session give the same results (both seed a
-    batch with its first index)."""
-    sess = world["tsess"]
-    ds = TDataset(world["root"], "train_list.txt")
-    trun_eval(sess, ds, batch_size=B, print_summary=False, progress=False)
-    paths = [ds.image_path(i) for i in range(N_IMAGES)]
-    cams = [ds.get_ann(i)["cam_intrinsic"] for i in range(N_IMAGES)]
-    got = tinf.inference_detector(sess, paths, cams)
-    assert len(got) == N_IMAGES
-    for i, (g, r) in enumerate(zip(got, ds.results)):
-        for k in ("labels", "bboxes_3d", "valid", "pose_cov"):
-            np.testing.assert_array_equal(g[k], r[k], err_msg=f"image {i} {k}")
-        # x 1/test_scale in run_eval, / test_scale here (as in JAX): an ulp
-        np.testing.assert_allclose(g["bboxes_2d"], r["bboxes_2d"], rtol=1e-6)
-        assert g["scores_2d"].shape == r["valid"].shape
-
-
-def test_run_seed_repeats_and_ignores_call_order(world):
-    sess = world["tsess"]
-    batch = _batch(world["root"])
-    args = (batch["images"], batch["cam"], batch["img_shapes"])
-    first = sess.run(*args, seed=4)
-    sess.run(*args, seed=9)
-    again = sess.run(*args, seed=4)
-    other = sess.run(*args, seed=9)
-    for k in ("bboxes_3d", "pose_cov", "valid"):
-        torch.testing.assert_close(getattr(again, k), getattr(first, k), rtol=0, atol=0)
-    torch.testing.assert_close(again.extras["latent_vecs"], first.extras["latent_vecs"],
-                               rtol=0, atol=0)
-    assert not torch.equal(other.pose_cov, first.pose_cov)
-    # injected draws win over the seed
-    draws = jax_draws(sess.cfg, 1, B)
-    a, b = sess.run(*args, seed=4, draws=draws), sess.run(*args, seed=9, draws=draws)
-    torch.testing.assert_close(a.pose_cov, b.pose_cov, rtol=0, atol=0)
-
-
-def test_session_input_is_the_jax_sessions(world, tmp_path):
-    """``init_inference(...).run`` takes what the JAX session's ``run``
-    takes (normalised, padded images, their K and (h, w)); ``raw=True``
-    switches to canvases. The JAX weights go in as a .pth file."""
-    _, tcfg = configs()
-    jsess = world["jsess"]
-    ckpt = str(tmp_path / "jax_weights.pth")
-    torch.save({"state_dict": from_jax_params(jsess.variables["params"],
-                                               jsess.variables["batch_stats"])}, ckpt)
-    sess = tinf.init_inference(tcfg, ckpt, batch_size=B, device="cpu", explicit_lazy=True)
-    assert sess.raw is False and sess.cfg == tcfg
-    assert tinf.init_inference(tcfg, batch_size=B, device="cpu", raw=True).raw
-    batch = _batch(world["root"])
-    args = (batch["images"], batch["cam"], batch["img_shapes"])
-    jdet = jsess.run(*args, seed=6)
-    tdet = JaxDraws(sess).run(*args, seed=6)
-    np.testing.assert_array_equal(tdet.valid.numpy(), np.asarray(jdet.valid))
-    _close(tdet.bboxes_3d.numpy(), jdet.bboxes_3d, TOL["bboxes_3d"])
 
 
 def test_read_calib_csv(tmp_path):
@@ -333,22 +237,6 @@ def test_pth_lazy_lower_rule(tmp_path):
     shutil.rmtree(step)
 
 
-def test_run_eval_distributed_at_world_size_one_is_the_plain_run(world):
-    """Without a process group the shard is the whole dataset: the same
-    batches, seeds, results and AP as ``distributed=False``."""
-    runs = []
-    for distributed in (False, True):
-        ds = TDataset(world["root"], "train_list.txt")
-        ap = trun_eval(world["tsess"], ds, batch_size=B, print_summary=False, progress=False,
-                       distributed=distributed)
-        runs.append((ds.results, ap))
-    (plain, ap_plain), (dist, ap_dist) = runs
-    assert ap_dist == ap_plain
-    assert len(dist) == len(plain) == N_IMAGES
-    for a, b in zip(dist, plain):
-        assert sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in b)
-
-
 TINY_OPTIONS = [
     "compute_dtype='float32'", "backbone.depth=26", "neck.out_channels=64",
     "rpn.feat_channels=64", "bbox_head.fc_out_channels=128",
@@ -363,76 +251,9 @@ TINY_OPTIONS = [
 ]
 
 
-def test_tools_test_and_prepare_kitti(world, tmp_path):
-    from monorun_tpu_torch.tools import prepare_kitti, test as tools_test
-
-    root = str(tmp_path / "kitti")
-    shutil.copytree(world["root"], root)
-    shutil.rmtree(os.path.join(root, "img_metas"))
-    assert prepare_kitti.main([root, "train_list.txt"]) == N_IMAGES
-    for name in os.listdir(os.path.join(world["root"], "img_metas")):
-        with open(os.path.join(root, "img_metas", name)) as f, \
-                open(os.path.join(world["root"], "img_metas", name)) as g:
-            assert f.read() == g.read()
-
-    summary, results = str(tmp_path / "ap.json"), str(tmp_path / "results")
-    argv = ["kitti_multiclass", "--val-set", "--device", "cpu", "--batch-size", "2",
-            "--summary-file", summary, "--result-dir", results, "--cfg-options",
-            f"data.train_root='{root}'", "data.val_list='train_list.txt'", *TINY_OPTIONS]
-    ap = tools_test.main(argv)
-    with open(summary) as f:
-        assert json.load(f) == ap
-    _, ref_ap = jke.kitti_eval([], [], ("Car", "Pedestrian", "Cyclist"))
-    assert list(ap) == list(ref_ap) and all(np.isfinite(v) for v in ap.values())
-    assert len(os.listdir(results)) == N_IMAGES
-    with pytest.raises(RuntimeError, match="torch.distributed.run"):
-        tools_test.main(argv + ["--distributed"])     # not launched by torchrun
-
-
-def test_show_result_pixel_equal(world):
-    """The port's visualizer draws the same pixels as the JAX package's,
-    on a detection result with the debug maps."""
-    ds = TDataset(world["root"], "train_list.txt")
-    trun_eval(JaxDraws(world["tsess"]), ds, batch_size=B, print_summary=False,
-              progress=False)
-    import cv2
-
-    shown = [i for i, r in enumerate(ds.results) if r["valid"].any()]
-    assert len(shown) >= 2
-    for i in shown[:2]:
-        res = ds.results[i]
-        assert "oc_maps" in res
-        img = cv2.imread(ds.image_path(i))
-        cam = ds.get_ann(i)["cam_intrinsic"]
-        got = tshow_result(img, res, cam, score_thr=0.0)
-        ref = jshow_result(img, res, cam, score_thr=0.0)
-        assert got.shape == ref.shape and got.dtype == ref.dtype
-        np.testing.assert_array_equal(got, ref)
-
-
 @pytest.mark.parametrize("module", ["infer_imgs", "infer_webcam"])
 def test_demo_help(module, capsys):
     demo = importlib.import_module(f"monorun_tpu_torch.demo.{module}")
     with pytest.raises(SystemExit) as e:
         demo.main(["--help"])
     assert e.value.code == 0 and "--device" in capsys.readouterr().out
-
-
-def test_demo_infer_imgs_on_cpu(world, tmp_path, monkeypatch):
-    """The image demo end to end on the CPU, the tiny configuration in
-    place of the preset."""
-    from monorun_tpu_torch.demo import infer_imgs
-
-    _, tcfg = configs()
-    monkeypatch.setattr(tinf, "get_config", lambda name: tcfg)
-    imgs = tmp_path / "imgs"
-    imgs.mkdir()
-    for name in ("000000.png", "000001.png"):
-        shutil.copy(os.path.join(world["root"], "image_2", name), imgs / name)
-    calib = tmp_path / "calib.csv"
-    np.savetxt(calib, tk.KITTI3DDataset(world["root"], "train_list.txt").get_ann(0)[
-        "cam_intrinsic"], delimiter=",")
-    out = tmp_path / "viz"
-    results = infer_imgs.main([str(imgs), "tiny", "--calib", str(calib), "--device", "cpu",
-                               "--show-dir", str(out)])
-    assert len(results) == 2 and sorted(os.listdir(out)) == ["000000.png", "000001.png"]

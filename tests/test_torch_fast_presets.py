@@ -29,6 +29,16 @@ Tolerances, as ``tests/test_torch_serve.py`` and
 exact; 2D boxes and scores to 1e-5 of their scale; 3D boxes, covariances
 and debug maps to 1e-3; losses to 1e-5 relative (1e-3 after the PnP);
 each gradient to 1e-4 of its leaf's largest entry; weights bit for bit.
+
+This file keeps the light cases. Each JAX side (a rung's variables and
+``serve_raw``, the no-CARAFE step) and the port's step are computed once
+per test run (``tests/torch_share.py:run_shared``), and the heavy cases
+are in files of at most 3 tests, which xdist hands out late:
+``test_torch_fast_presets_serve{,_maps,_fast}.py``,
+``test_torch_fast_presets_step.py`` (3 tests, which build the step) with
+``test_torch_fast_presets_step_{rpn,cls,heads,pose,score}.py`` (at most 2,
+which read it and go out after every file of 3), and
+``test_torch_fast_presets_r50.py``.
 """
 
 import dataclasses
@@ -41,25 +51,24 @@ import torch
 
 from monorun_tpu.config import get_config
 from monorun_tpu.models import init_detector
+from monorun_tpu.models.detector import Detections as JDetections
 from monorun_tpu.models.detector import MonoRUn as JMonoRUn
 from monorun_tpu.models.detector import _train_forward
-from monorun_tpu.models.noc_head import NOCHead as JNOCHead
 from monorun_tpu.ops import roi_align as jra
 from monorun_tpu.train import create_train_state
 from monorun_tpu.utils.synthetic import synthetic_train_batch
 from monorun_tpu_torch.config import get_config as tget_config
 from monorun_tpu_torch.models.detector import Detections, HeadDraws, MonoRUn
-from monorun_tpu_torch.models.detector import init_random_weights
-from monorun_tpu_torch.models.noc_head import NOCHead
 from monorun_tpu_torch.ops import roi_align as tra
-from monorun_tpu_torch.utils.weights import from_jax_params, load_pth, to_jax_leaves
+from monorun_tpu_torch.utils.weights import from_jax_params, to_jax_leaves
 
 from test_fast_preset import kitti_dir  # noqa: F401  (the fixture, shared)
+from test_torch_eval import jax_native_built  # noqa: F401  (autouse)
 from test_torch_modules import _randomize, jax_mc_masks
 from test_torch_serve import _close
-from test_torch_train_step import (AFTER_PNP, LOSSES, _flat, _rel, jax_train_draws,
-                                   proposal_count, tiny_train_config)
-from torch_share import cpu_share  # noqa: F401
+from test_torch_train_step import (AFTER_PNP, _flat, draw_arrays, draw_counts,
+                                   jax_train_draws, tiny_train_config, train_draws_of)
+from torch_share import cpu_share, pack, run_shared, unpack  # noqa: F401
 
 B = 2
 PRESETS = ("kitti_multiclass_fast", "kitti_multiclass_fast_r50", "kitti_multiclass_fast2",
@@ -121,38 +130,46 @@ def rung_inputs(rung, seed=0):
     return raw, cam, shapes
 
 
-_VARIABLES = {}
-
-
 def jax_variables(rung):
-    """The rung's ``_randomize``d JAX variables (one init per rung)."""
-    if rung not in _VARIABLES:
+    """The rung's ``_randomize``d JAX variables, as arrays: one init per rung
+    and test run (``run_shared``)."""
+    def compute():
         cfg = tiny_rung(get_config, rung)
         _, variables = init_detector(cfg, jax.random.PRNGKey(0), RUNGS[rung]["pad"],
                                      fast=True)
-        _VARIABLES[rung] = _randomize(variables)
-    return _VARIABLES[rung]
+        return _randomize(variables)
+
+    return run_shared(f"test_torch_fast_presets.jax_variables: tiny_rung({rung!r}), "
+                      "init_detector(PRNGKey(0), fast=True), _randomize(seed 0)", compute)
 
 
 def serve_jax(rung, key):
     """JAX's ``serve_raw`` on the rung's inputs, and its draws as
     ``HeadDraws``: ``heads_forward`` splits its key into the MC and the
-    PnP keys."""
-    cfg = tiny_rung(get_config, rung)
-    variables = jax_variables(rung)
-    model = JMonoRUn(cfg)
-    raw, cam, shapes = rung_inputs(rung)
-    jdet = jax.jit(
-        lambda v, a, c, s, k: model.apply(v, a, c, s, k, method=model.serve_raw)
-    )(variables, jnp.asarray(raw), jnp.asarray(cam), jnp.asarray(shapes), key)
-    rng_mc, rng_pnp = jax.random.split(key)
-    K = cfg.test.head_slots
-    masks = jax_mc_masks(cfg.global_head, rng_mc, B * K, cfg.neck.out_channels)
-    keys = np.array(jax.random.uniform(
-        rng_pnp, (B * K, cfg.pose_head.ransac_hypotheses, cfg.noc_head.dense_size ** 2)))
-    draws = HeadDraws(tuple(torch.from_numpy(m.copy()) for m in masks),
-                      torch.from_numpy(keys))
-    return jdet, draws
+    PnP keys. Once per rung and test run (``run_shared``): the detections
+    come back as a ``Detections`` of arrays."""
+    def compute():
+        cfg = tiny_rung(get_config, rung)
+        variables = jax_variables(rung)
+        model = JMonoRUn(cfg)
+        raw, cam, shapes = rung_inputs(rung)
+        jdet = jax.jit(
+            lambda v, a, c, s, k: model.apply(v, a, c, s, k, method=model.serve_raw)
+        )(variables, jnp.asarray(raw), jnp.asarray(cam), jnp.asarray(shapes), key)
+        rng_mc, rng_pnp = jax.random.split(key)
+        K = cfg.test.head_slots
+        masks = jax_mc_masks(cfg.global_head, rng_mc, B * K, cfg.neck.out_channels)
+        keys = np.array(jax.random.uniform(
+            rng_pnp, (B * K, cfg.pose_head.ransac_hypotheses, cfg.noc_head.dense_size ** 2)))
+        return dict(det=jax.tree.map(np.asarray, jdet._asdict()), masks=tuple(masks),
+                    keys=keys)
+
+    ref = run_shared(f"test_torch_fast_presets.serve_jax: tiny_rung({rung!r}), rung_inputs "
+                     f"seed 0, jax_variables(PRNGKey(0), fast=True, _randomize seed 0), key "
+                     f"{np.asarray(key).tolist()}", compute)
+    draws = HeadDraws(tuple(torch.from_numpy(m.copy()) for m in ref["masks"]),
+                      torch.from_numpy(ref["keys"]))
+    return JDetections(**ref["det"]), draws
 
 
 def serve_port(rung, draws):
@@ -182,10 +199,10 @@ def serve_rungs(rungs):
     its place in RUNGS)``); ``_fast3_r50`` served by the port twice, with
     the switch at and just above its B x proposals (the band route's choice
     needs ``MONORUN_BAND_TIERED`` to differ from the sorted one's on the
-    card). The served tests are in ``tests/test_torch_fast_presets_serve.py``
-    and ``tests/test_torch_fast_presets_serve_fast.py``: files of at most 5
-    tests, which xdist hands out after ``tests/test_train_step.py``
-    (ROADMAP's test-time budget)."""
+    card). The served tests are in ``tests/test_torch_fast_presets_serve.py``,
+    ``test_torch_fast_presets_serve_maps.py`` and
+    ``test_torch_fast_presets_serve_fast.py``: files of at most 3 tests,
+    which xdist hands out late (ROADMAP's test-time budget)."""
     out = {}
     for rung in rungs:
         jdet, draws = serve_jax(rung, jax.random.PRNGKey(1 + list(RUNGS).index(rung)))
@@ -274,63 +291,80 @@ def no_carafe_train_config(get_cfg):
     return r(cfg, noc_head=r(cfg.noc_head, dense_size=d), train=r(cfg.train, dense_size=d))
 
 
+NO_CARAFE_STEP = (
+    "no_carafe_train_config(tiny_train_config(kitti_multiclass_lidar_supv)), float32, "
+    f"B {B}, 64x128, synthetic_train_batch(num_gt=6, num_pts=32), create_train_state("
+    "PRNGKey(0), total_steps=100), _randomize(seed 0), step key PRNGKey(1), loss_ema 1.0")
+
+
+def jax_no_carafe_step():
+    """JAX's side of the no-CARAFE step, once per test run (``run_shared``):
+    the randomized variables, the batch, the draws of the step key, and
+    JAX's losses and gradients, as arrays."""
+    def compute():
+        H, W = 64, 128
+        cfg = no_carafe_train_config(get_config)
+        model, state, _ = create_train_state(cfg, jax.random.PRNGKey(0), total_steps=100,
+                                             image_shape=(H, W))
+        variables = _randomize({"params": state.params, "batch_stats": state.batch_stats})
+        batch_np = synthetic_train_batch(cfg, B, (H, W), num_gt=6, num_pts=32)
+        key = jax.random.PRNGKey(1)
+
+        def loss_fn(params):
+            (total, (metrics, _)), _ = model.apply(
+                {"params": params, "batch_stats": variables["batch_stats"]},
+                jax.tree.map(jnp.asarray, batch_np), key, 0, jnp.float32(1.0),
+                method=_train_forward, mutable=["batch_stats"])
+            return total, metrics
+
+        (jtotal, jmetrics), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+            jax.tree.map(jnp.asarray, variables["params"]))
+        counts = draw_counts(no_carafe_train_config(tget_config),
+                             torch.from_numpy(np.array(batch_np["images"])))
+        draws = jax_train_draws(cfg, key, *counts, batch_np["gt_boxes"].shape[1])
+        return dict(
+            variables=jax.tree.map(np.asarray, variables), batch=batch_np,
+            draws=draw_arrays(draws), grads=_flat(jgrads),
+            metrics={k: np.asarray(v) for k, v in dict(jmetrics, total_loss=jtotal).items()})
+
+    return run_shared(f"test_torch_fast_presets.jax_no_carafe_step: {NO_CARAFE_STEP}",
+                      compute)
+
+
 @pytest.fixture(scope="module")
 def step():
-    H, W = 64, 128
-    cfg = no_carafe_train_config(get_config)
-    model, state, _ = create_train_state(cfg, jax.random.PRNGKey(0), total_steps=100,
-                                         image_shape=(H, W))
-    variables = _randomize({"params": state.params, "batch_stats": state.batch_stats})
-    batch_np = synthetic_train_batch(cfg, B, (H, W), num_gt=6, num_pts=32)
-    key = jax.random.PRNGKey(1)
+    """The port's no-CARAFE step on JAX's inputs beside JAX's results, each
+    once per test run (``run_shared``). The step's tests are in
+    ``test_torch_fast_presets_step*.py``, which xdist hands out late."""
+    ref = jax_no_carafe_step()
 
-    def loss_fn(params):
-        (total, (metrics, _)), _ = model.apply(
-            {"params": params, "batch_stats": variables["batch_stats"]},
-            jax.tree.map(jnp.asarray, batch_np), key, 0, jnp.float32(1.0),
-            method=_train_forward, mutable=["batch_stats"])
-        return total, metrics
+    def compute():
+        tcfg = no_carafe_train_config(tget_config)
+        tmodel = MonoRUn(tcfg)
+        assert tmodel.roi_head.noc_head.upsample is None
+        v = ref["variables"]
+        tmodel.load_state_dict(from_jax_params(v["params"], v["batch_stats"]))
+        tbatch = {k: torch.from_numpy(np.array(a)) for k, a in ref["batch"].items()}
+        total, (tmetrics, _) = tmodel.train_forward(tbatch, torch.tensor(1.0),
+                                                    train_draws_of(ref["draws"]))
+        names = [n for n, _ in tmodel.named_parameters()]
+        tgrads = torch.autograd.grad(total, [p for _, p in tmodel.named_parameters()])
+        tmetrics = {k: v.detach() for k, v in tmetrics.items()}
+        tmetrics["total_loss"] = total.detach()
+        return dict(tmetrics=tmetrics,
+                    tgrads=to_jax_leaves(dict(zip(names, tgrads)), list(ref["grads"])))
 
-    (jtotal, jmetrics), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-        jax.tree.map(jnp.asarray, variables["params"]))
-    jmetrics = dict(jmetrics, total_loss=jtotal)
-
-    tcfg = no_carafe_train_config(tget_config)
-    tmodel = MonoRUn(tcfg)
-    assert tmodel.roi_head.noc_head.upsample is None
-    tmodel.load_state_dict(from_jax_params(variables["params"], variables["batch_stats"]))
-    tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch_np.items()}
-    with torch.no_grad():
-        cls, _ = tmodel.rpn_head(tmodel.extract_feats(tbatch["images"])[tcfg.rpn.starting_level:])
-    n_props = proposal_count(tcfg, [(c.shape[1], c.shape[2]) for c in cls], cls[0].shape[-1])
-    draws = jax_train_draws(cfg, key, sum(c[0].numel() for c in cls), n_props,
-                            batch_np["gt_boxes"].shape[1])
-    total, (tmetrics, _) = tmodel.train_forward(tbatch, torch.tensor(1.0), draws)
-    names = [n for n, _ in tmodel.named_parameters()]
-    tgrads = torch.autograd.grad(total, [p for _, p in tmodel.named_parameters()])
-    tmetrics = {k: v.detach() for k, v in tmetrics.items()}
-    tmetrics["total_loss"] = total.detach()
-    paths = list(_flat(jgrads))
-    return dict(jmetrics=jmetrics, tmetrics=tmetrics, jgrads=_flat(jgrads),
-                tgrads=to_jax_leaves(dict(zip(names, tgrads)), paths))
+    port = unpack(run_shared(f"test_torch_fast_presets.step: the port's on {NO_CARAFE_STEP}",
+                             lambda: pack(compute())))
+    return dict(port, jmetrics=ref["metrics"], jgrads=ref["grads"])
 
 
-@pytest.mark.parametrize("name", LOSSES + ("mean_iou", "total_loss"))
-def test_no_carafe_step_losses_match(step, name):
+def check_no_carafe_loss(step, name):
+    """``test_no_carafe_step_losses_match``: the port's ``name`` against JAX's."""
     got, ref = float(step["tmetrics"][name]), float(step["jmetrics"][name])
     assert np.isfinite(got)
     rtol = 1e-3 if name in AFTER_PNP else 1e-5
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=rtol * max(abs(ref), 1e-5))
-
-
-def test_no_carafe_step_gradients_match(step):
-    jg, tg = step["jgrads"], step["tgrads"]
-    assert set(jg) == set(tg)
-    assert not any("upsample" in p or "conv_up" in p for p in jg)
-    bad = {p: e for p in jg if not (e := _rel(tg[p], jg[p])) <= 1e-4}
-    assert not bad, bad
-    # the NOC decoder trains at 14x14: its final conv has a gradient
-    assert np.abs(jg["noc_head/conv_final/kernel"]).any()
 
 
 # ---- tests/test_fast_preset.py, against the JAX package ----------------------
@@ -360,37 +394,6 @@ def test_preset_shapes(name):
         assert (s, cfg.test.rpn_nms_post, cfg.test.head_slots) == (0.75, 256, 24)
     else:
         assert (s, cfg.test.rpn_nms_post, cfg.noc_head.dense_size) == (0.75, 512, 28)
-
-
-def test_fast2_noc_head_without_carafe_matches_jax():
-    """The fast2 NOC head (``test_fast_preset.py:127-144``): roi-grid-sized
-    maps, no CARAFE or post-upsample conv parameters, and JAX's outputs on
-    the same weights."""
-    cfg = get_config("kitti_multiclass_fast2")
-    x = np.random.default_rng(0).normal(size=(4, 14, 14, 256)).astype(np.float32)
-    lat = np.random.default_rng(1).normal(
-        size=(4, cfg.noc_head.latent_channels)).astype(np.float32)
-    lbl = np.asarray([0, 1, 2, 0], np.int32)
-    flp = np.asarray([False, True, False, True])
-    nh = JNOCHead(cfg.noc_head, dtype=jnp.float32)
-    v = nh.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(lat), jnp.asarray(lbl),
-                jnp.asarray(flp), False)
-    v = _randomize(jax.tree.map(np.asarray, v))
-    assert "upsample" not in v["params"]
-    assert not any(k.startswith("conv_up") for k in v["params"])
-    jout = nh.apply(v, jnp.asarray(x), jnp.asarray(lat), jnp.asarray(lbl),
-                    jnp.asarray(flp), False)
-    head = NOCHead(tget_config("kitti_multiclass_fast2").noc_head)
-    assert head.upsample is None and len(head.convs_upsampled) == 0
-    prefix = "roi_head.noc_head."
-    sd = from_jax_params({"noc_head": v["params"]}, {})
-    head.load_state_dict({k[len(prefix):]: t for k, t in sd.items()})
-    with torch.no_grad():
-        out = head(torch.from_numpy(x), torch.from_numpy(lat), torch.from_numpy(lbl).long(),
-                   torch.from_numpy(flp))
-    assert out.noc_pred.shape == (4, 14, 14, 3) and out.proj_logstd.shape == (4, 14, 14, 2)
-    _close(out.noc_pred, jout.noc_pred, 1e-5)
-    _close(out.proj_logstd, jout.proj_logstd, 1e-5)
 
 
 @pytest.mark.parametrize("name", ["kitti_multiclass_fast", "kitti_multiclass_fast3_r50"])
@@ -440,7 +443,6 @@ def test_run_eval_maps_boxes_back_to_native(kitti_dir, tmp_path):  # noqa: F811
     write the same native-coordinate result files and AP dict."""
     from monorun_tpu.apis.test import run_eval as jrun_eval
     from monorun_tpu.data.kitti import KITTI3DDataset as JDataset
-    from monorun_tpu.models.detector import Detections as JDetections
     from monorun_tpu_torch.apis.test import run_eval
     from monorun_tpu_torch.data.kitti import KITTI3DDataset
 
@@ -479,44 +481,3 @@ def test_run_eval_maps_boxes_back_to_native(kitti_dir, tmp_path):  # noqa: F811
 
 
 # ---- ResNet-50 weights -----------------------------------------------------------
-
-def test_r50_weights_round_trip_both_ways(tmp_path):
-    """A depth-50 state dict with the reference (mmdet) key names: the
-    port's saved as ``.pth``, converted by the JAX package's converter and
-    turned back by ``from_jax_params``; and JAX's variables carried into
-    the port, loaded strictly, and read back as JAX leaves. Bit for bit
-    both ways."""
-    from monorun_tpu.utils.checkpoint import convert_torch_checkpoint
-
-    variables = jax_variables("fast3_r50")
-    cfg = tiny_rung(tget_config, "fast3_r50")
-    assert cfg.backbone.depth == 50
-    # JAX -> port -> JAX
-    model = MonoRUn(cfg)
-    model.load_state_dict(from_jax_params(variables["params"], variables["batch_stats"]))
-    assert len(model.backbone.layer3) == 6 and len(model.backbone.layer2) == 4
-    ref = {**_flat(variables["params"]), **_flat(variables["batch_stats"])}
-    back = to_jax_leaves(dict(model.state_dict()), list(ref))
-    assert set(back) == set(ref)
-    for p, v in ref.items():
-        np.testing.assert_array_equal(back[p], v, err_msg=p)
-    # port -> .pth -> JAX converter -> port
-    port = init_random_weights(MonoRUn(cfg), torch.Generator().manual_seed(5))
-    gen = torch.Generator().manual_seed(6)
-    with torch.no_grad():
-        for t in list(port.parameters()) + list(port.buffers()):
-            t.add_(0.05 * torch.rand(t.shape, generator=gen))
-    sd = port.state_dict()
-    assert "backbone.layer3.5.conv3.weight" in sd and "backbone.layer4.2.bn3.running_var" in sd
-    pth = tmp_path / "r50.pth"
-    torch.save({"state_dict": sd}, pth)
-    params, stats, _, report = convert_torch_checkpoint(
-        str(pth), variables["params"], variables["batch_stats"])
-    assert set(report.values()) == {"ok"}, report
-    again = from_jax_params(params, stats)
-    assert set(again) == set(sd)
-    for k, v in sd.items():
-        torch.testing.assert_close(again[k], v, rtol=0, atol=0, msg=k)
-    fresh = load_pth(MonoRUn(cfg), str(pth))
-    for k, v in sd.items():
-        torch.testing.assert_close(fresh.state_dict()[k], v, rtol=0, atol=0, msg=k)

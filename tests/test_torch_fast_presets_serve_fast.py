@@ -1,8 +1,7 @@
 """The fast presets' ``_fast`` rung served by both packages
 (``tests/test_torch_fast_presets.py`` states the rung, the inputs, the
-draws and the tolerances), in a file of its own of at most 5 tests, so
-that xdist hands it out after ``tests/test_train_step.py`` (ROADMAP's
-test-time budget).
+draws and the tolerances), in a file of its own of at most 3 tests, which
+xdist hands out late (ROADMAP's test-time budget).
 """
 
 import pytest

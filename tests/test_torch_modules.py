@@ -6,6 +6,10 @@ Every case feeds the same numpy inputs (from a seed) and the same weights
 exact for index and mask outputs; 1e-5 relative (with an absolute floor
 of 1e-5 of the output's scale) for float outputs, which differ only by
 summation order.
+
+The modules whose JAX side compiles longest are in
+``test_torch_modules_{backbone,rpn,heads,nms,rotated}.py``: files of at most 3
+tests, which xdist hands out late (ROADMAP's test-time budget).
 """
 
 import dataclasses
@@ -17,36 +21,22 @@ import numpy as np
 import pytest
 import torch
 
-from monorun_tpu import coders as jcoders
 from monorun_tpu import config as jconfig
 from monorun_tpu.config import get_config
 from monorun_tpu.data import pipeline as jpipe
-from monorun_tpu.models import bbox_head as jbbox
-from monorun_tpu.models import fpn as jfpn
 from monorun_tpu.models import global_head as jglobal
-from monorun_tpu.models import noc_head as jnoc
-from monorun_tpu.models import resnet as jresnet
-from monorun_tpu.models import rpn as jrpn
 from monorun_tpu.models import score_head as jscore
 from monorun_tpu.ops import box_coder as jbox
 from monorun_tpu.ops import carafe as jcarafe
 from monorun_tpu.ops import nms as jnms
-from monorun_tpu.ops import rotated_iou as jriou
-from monorun_tpu_torch import coders as tcoders
 from monorun_tpu_torch import config as tconfig
 from monorun_tpu_torch.config import get_config as tget_config
 from monorun_tpu_torch.data import pipeline as tpipe
-from monorun_tpu_torch.models import bbox_head as tbbox
-from monorun_tpu_torch.models import fpn as tfpn
 from monorun_tpu_torch.models import global_head as tglobal
-from monorun_tpu_torch.models import noc_head as tnoc
-from monorun_tpu_torch.models import resnet as tresnet
-from monorun_tpu_torch.models import rpn as trpn
 from monorun_tpu_torch.models import score_head as tscore
 from monorun_tpu_torch.ops import box_coder as tbox
 from monorun_tpu_torch.ops import carafe as tcarafe
 from monorun_tpu_torch.ops import nms as tnms
-from monorun_tpu_torch.ops import rotated_iou as triou
 from monorun_tpu_torch.utils.weights import from_jax_params
 
 from torch_share import cpu_share  # noqa: F401
@@ -122,42 +112,6 @@ def test_config_copy_matches(name):
 
 # ---- coders (item 2) -------------------------------------------------------
 
-def test_coders_decode():
-    rng = np.random.default_rng(0)
-    n = 6
-    labels = rng.integers(0, 3, n)
-    dim = rng.normal(size=(n, 3)).astype(np.float32)
-    dim_var = rng.uniform(0.1, 1, (n, 3)).astype(np.float32)
-    jd = jcoders.DimCoder().decode(jnp.asarray(dim), jnp.asarray(dim_var), jnp.asarray(labels))
-    td = tcoders.DimCoder().decode(_t(dim), _t(dim_var), _t(labels))
-    for a, b in zip(td, jd):
-        _close(a, b)
-
-    part = rng.normal(size=(n, 4, 4, 3)).astype(np.float32)
-    flip = np.zeros(n, bool)
-    dims = np.asarray(jd[0])
-    dvar = np.asarray(jd[1])
-    jn = jcoders.NOCCoder().decode(jnp.asarray(part), None, jnp.asarray(dims),
-                                   jnp.asarray(dvar), jnp.asarray(flip))
-    tn = tcoders.NOCCoder().decode(_t(part), None, _t(dims), _t(dvar), _t(flip))
-    for a, b in zip(tn, jn):
-        _close(a, b)
-
-    logstd = rng.normal(size=(n, 4, 4, 2)).astype(np.float32)
-    dist = rng.uniform(1, 40, (n, 1)).astype(np.float32)
-    jp, tp = jcoders.ProjErrorCoder(), tcoders.ProjErrorCoder()
-    for cvar, d in ((np.asarray(jn[1]), None), (None, dist), (None, None)):
-        ref = jp.decode_logstd(jnp.asarray(logstd),
-                               None if cvar is None else jnp.asarray(cvar),
-                               None if d is None else jnp.asarray(d))
-        got = tp.decode_logstd(_t(logstd), None if cvar is None else _t(cvar),
-                               None if d is None else _t(d))
-        _close(got, ref)
-    cov = rng.normal(size=(n, 4, 4)).astype(np.float32)
-    _close(tp.cov_correction(_t(cov), _t(dist[:, 0])),
-           jp.cov_correction(jnp.asarray(cov), jnp.asarray(dist[:, 0])))
-
-
 # ---- box coder (item 3) ----------------------------------------------------
 
 def test_box_coder_and_anchors():
@@ -191,31 +145,6 @@ def _chain(n=40, step=1.2):
     return boxes, scores
 
 
-@pytest.mark.parametrize("exact,iters", [(True, 12), (False, 16), (False, 3)])
-def test_nms_fixpoint_and_exact(exact, iters):
-    boxes, scores = _chain()
-    rng = np.random.default_rng(2)
-    scores = scores[rng.permutation(len(scores))]
-    scores[5] = jnms.NEG_INF                  # a padded slot
-    jk = jnms.nms(jnp.asarray(boxes), jnp.asarray(scores), 0.7, 30, exact, iters)
-    tk = tnms.nms(_t(boxes), _t(scores), 0.7, 30, exact, iters)
-    np.testing.assert_array_equal(tk[0].numpy(), np.asarray(jk[0]))
-    np.testing.assert_array_equal(tk[1].numpy(), np.asarray(jk[1]))
-
-
-def test_nms_deep_chain_keeps_the_fixpoint_extras():
-    """On a chain deeper than 16 the RPN's 16-round fixpoint keeps more
-    boxes than greedy NMS; the port keeps exactly the same extra boxes."""
-    boxes, scores = _chain(n=48, step=0.9)
-    fix = tnms.nms(_t(boxes), _t(scores), 0.75, 48, exact=False, fixpoint_iters=16)
-    greedy = tnms.nms(_t(boxes), _t(scores), 0.75, 48, exact=True)
-    assert fix[1].sum() > greedy[1].sum()
-    jfix = jnms.nms(jnp.asarray(boxes), jnp.asarray(scores), 0.75, 48,
-                    exact=False, fixpoint_iters=16)
-    np.testing.assert_array_equal(fix[0].numpy(), np.asarray(jfix[0]))
-    np.testing.assert_array_equal(fix[1].numpy(), np.asarray(jfix[1]))
-
-
 def test_multiclass_nms():
     rng = np.random.default_rng(3)
     n, k = 30, 3
@@ -230,25 +159,6 @@ def test_multiclass_nms():
     _close(got[1], ref[1])
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
-
-
-def test_rotated_iou_and_bev_nms():
-    rng = np.random.default_rng(4)
-    n = 24
-    bev = np.concatenate([
-        rng.uniform(-5, 5, (n, 2)), rng.uniform(1, 4, (n, 2)),
-        rng.uniform(-np.pi, np.pi, (n, 1)),
-    ], 1).astype(np.float32)
-    bev[3] = bev[2]                           # identical boxes
-    _close(triou.rotated_iou(_t(bev), _t(bev)),
-           jriou.rotated_iou(jnp.asarray(bev), jnp.asarray(bev)), rtol=1e-4)
-    scores = rng.uniform(0, 1, n).astype(np.float32)
-    ref = jnms.nms_rotated_bev(jnp.asarray(bev), jnp.asarray(scores), 0.1, n,
-                               exact=False, fixpoint_iters=n)
-    got = tnms.nms_rotated_bev(_t(bev), _t(scores), 0.1, n, exact=False,
-                               fixpoint_iters=n)
-    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
 
 
 # ---- preprocessing (item 5) ------------------------------------------------
@@ -276,100 +186,12 @@ def _nhwc_feats(seed, shapes):
     return [rng.normal(size=s).astype(np.float32) for s in shapes]
 
 
-def test_resnet_frozen_bn():
-    img = _nhwc_feats(6, [(1, 64, 96, 3)])[0]
-    jm = jresnet.ResNet(depth=26)
-    v = _randomize(jitted(jm.init, jax.random.PRNGKey(0), jnp.asarray(img)), seed=6)
-    ref = jitted(jm.apply, v, jnp.asarray(img))
-    tm = _load(tresnet.ResNet(depth=26), v, "backbone", "backbone.")
-    with torch.no_grad():
-        got = tm(_t(img))
-    for a, b in zip(got, ref):
-        _close(a, b, rtol=1e-4)
-
-
-@pytest.mark.parametrize("lazy", [True, False])
-def test_fpn_plus(lazy):
-    """Dense build: F.interpolate(bilinear, align_corners=False) must equal
-    jax.image.resize(bilinear) everywhere, the image border included."""
-    ins = _nhwc_feats(7, [(1, 16, 24, 32), (1, 8, 12, 48), (1, 4, 6, 64), (1, 2, 3, 80)])
-    jm = jfpn.FPNplus(out_channels=16, num_outs=5, num_lower_outs=1, lazy_lower=lazy)
-    v = _randomize(jitted(jm.init, jax.random.PRNGKey(1), [jnp.asarray(x) for x in ins]), 7)
-    ref = jitted(jm.apply, v, [jnp.asarray(x) for x in ins])
-    tm = _load(tfpn.FPNplus((32, 48, 64, 80), 16, 5, 1, lazy), v, "neck", "neck.")
-    with torch.no_grad():
-        got = tm([_t(x) for x in ins])
-    assert len(got) == len(ref) == 6
-    for a, b in zip(got, ref):
-        _close(a, b, rtol=1e-4)
-    if not lazy:   # the border rows/columns of the upsampled level
-        lat = torch.nn.functional.interpolate(
-            torch.arange(6.0).reshape(1, 1, 2, 3), scale_factor=2,
-            mode="bilinear", align_corners=False)
-        jlat = jax.image.resize(jnp.arange(6.0).reshape(1, 2, 3, 1),
-                                (1, 4, 6, 1), "bilinear")
-        _close(lat[0, 0], np.asarray(jlat)[0, ..., 0])
-
-
 # ---- RPN (item 7) ----------------------------------------------------------
-
-def test_rpn_head_and_proposals():
-    feats = _nhwc_feats(8, [(2, 16, 32, 16), (2, 8, 16, 16), (2, 4, 8, 16),
-                            (2, 2, 4, 16), (2, 1, 2, 16)])
-    jm = jrpn.RPNHead(feat_channels=16, num_anchors=3)
-    v = _randomize(jitted(jm.init, jax.random.PRNGKey(2), [jnp.asarray(f) for f in feats]), 8)
-    jc, jr = jitted(jm.apply, v, [jnp.asarray(f) for f in feats])
-    tm = _load(trpn.RPNHead(16, 16, 3), v, "rpn_head", "rpn_head.")
-    with torch.no_grad():
-        tc, tr = tm([_t(f) for f in feats])
-    for a, b in zip(tc + tr, jc + jr):
-        _close(a, b, rtol=1e-4)
-    # proposals from the same (JAX) head outputs on both sides
-    shapes = np.array([[60.0, 120.0], [64.0, 128.0]], np.float32)
-    rcfg = dataclasses.replace(CFG.rpn, nms_thr=0.7)
-    ref = jitted(lambda c, r, v: jrpn.get_proposals(c, r, rcfg, (64, 128), 40, 50,
-                                                    valid_shapes=v), jc, jr, jnp.asarray(shapes))
-    got = trpn.get_proposals([_t(c) for c in jc], [_t(r) for r in jr],
-                             dataclasses.replace(TCFG.rpn, nms_thr=0.7),
-                             (64, 128), 40, 50, valid_shapes=_t(shapes))
-    _close(got[0], ref[0])
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
-
 
 # ---- bbox head and detections (item 9) -------------------------------------
 
 def _small_head_cfg(cfg):
     return dataclasses.replace(cfg.bbox_head, in_channels=16, fc_out_channels=32)
-
-
-def test_bbox_head_and_det_bboxes():
-    x = _nhwc_feats(9, [(12, 7, 7, 16)])[0]
-    jm = jbbox.BBoxHead(_small_head_cfg(CFG))
-    v = _randomize(jitted(jm.init, jax.random.PRNGKey(3), jnp.asarray(x)), 9)
-    jc, jd = jitted(jm.apply, v, jnp.asarray(x))
-    tm = _load(tbbox.BBoxHead(_small_head_cfg(TCFG)), v, "bbox_head",
-               "roi_head.bbox_head.")
-    with torch.no_grad():
-        tc, td = tm(_t(x))
-    _close(tc, jc, rtol=1e-4)
-    _close(td, jd, rtol=1e-4)
-
-    rng = np.random.default_rng(9)
-    xy = rng.uniform(0, 80, (12, 2))
-    rois = np.concatenate([xy, xy + rng.uniform(5, 40, (12, 2))], 1).astype(np.float32)
-    valid = np.ones(12, bool)
-    valid[-2:] = False
-    logits = np.asarray(jc) * 3.0
-    deltas = np.asarray(jd)
-    ref = jbbox.get_det_bboxes(jnp.asarray(rois), jnp.asarray(logits),
-                               jnp.asarray(deltas), jnp.asarray(valid), (64, 128),
-                               CFG.bbox_head, 0.05, 0.5, 8)
-    got = tbbox.get_det_bboxes(_t(rois), _t(logits), _t(deltas), _t(valid),
-                               (64, 128), TCFG.bbox_head, 0.05, 0.5, 8)
-    _close(got[0], ref[0])
-    _close(got[1], ref[1])
-    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
-    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
 
 
 # ---- MC global head (item 10) ----------------------------------------------
@@ -387,32 +209,6 @@ def jax_mc_masks(gcfg, rng, n, channels, dtype=jnp.float32):
     m0 = jglobal._dropout_mask(jglobal._fast_key(r0, gcfg.mc_fast_rng), keep, (n, S, F), dtype)
     m1 = jglobal._dropout_mask(jglobal._fast_key(r1, gcfg.mc_fast_rng), keep, (n, S, F), dtype)
     return tuple(np.asarray(m) for m in (m2d, m0, m1))
-
-
-def test_global_head_with_injected_masks():
-    gcfg = dataclasses.replace(CFG.global_head, in_channels=16,
-                               fc_out_channels=32, mc_samples=5)
-    x = _nhwc_feats(10, [(6, 7, 7, 16)])[0]
-    jm = jglobal.GlobalHead(gcfg)
-    key = jax.random.PRNGKey(4)
-    v = _randomize(jitted(jm.init, jax.random.PRNGKey(5), jnp.asarray(x), train=False, rng=key),
-                   10)
-    ref = jitted(jm.apply, v, jnp.asarray(x), train=False, rng=key)
-    masks = jax_mc_masks(gcfg, key, 6, 16)
-    tg = dataclasses.replace(TCFG.global_head, in_channels=16,
-                             fc_out_channels=32, mc_samples=5)
-    tm = _load(tglobal.GlobalHead(tg), v, "global_head", "roi_head.global_head.")
-    with torch.no_grad():
-        got = tm(_t(x), masks=tuple(_t(m) for m in masks))
-    for a, b in zip(got, ref):
-        _close(a, b, rtol=1e-5)
-
-    labels = np.array([0, 2, 1, 1, 0, 2])
-    jsl = jglobal.slice_pred(gcfg, ref.dim_latent_pred, ref.dim_latent_var,
-                             jnp.asarray(labels))
-    tsl = tglobal.slice_pred(tg, got.dim_latent_pred, got.dim_latent_var, _t(labels))
-    for a, b in zip(tsl, jsl):
-        _close(a, b)
 
 
 def test_global_head_draws_its_own_masks():
@@ -435,26 +231,6 @@ def test_carafe_reassembly():
     _close(tcarafe.carafe(_t(f), _t(k), 5, 2), jcarafe.carafe(jnp.asarray(f), jnp.asarray(k), 5, 2))
     _close(tcarafe.carafe(_t(f), _t(k), 5, 2),
            jcarafe.carafe_matmul(jnp.asarray(f), jnp.asarray(k), 5, 2))
-
-
-def test_noc_head():
-    ncfg = dataclasses.replace(CFG.noc_head, in_channels=16, conv_out_channels=16,
-                               carafe_compressed_channels=8, roi_size=6, dense_size=12)
-    x = _nhwc_feats(12, [(5, 6, 6, 16)])[0]
-    latent = _nhwc_feats(13, [(5, 16)])[0]
-    labels = np.array([0, 1, 2, 1, 0])
-    flip = np.array([False, True, False, True, False])
-    jm = jnoc.NOCHead(ncfg)
-    args = (jnp.asarray(x), jnp.asarray(latent), jnp.asarray(labels), jnp.asarray(flip))
-    v = _randomize(jitted(jm.init, jax.random.PRNGKey(6), *args, train=False), 12)
-    ref = jitted(jm.apply, v, *args, train=False)
-    tcfg = dataclasses.replace(TCFG.noc_head, in_channels=16, conv_out_channels=16,
-                               carafe_compressed_channels=8, roi_size=6, dense_size=12)
-    tm = _load(tnoc.NOCHead(tcfg), v, "noc_head", "roi_head.noc_head.")
-    with torch.no_grad():
-        got = tm(_t(x), _t(latent), _t(labels), _t(flip))
-    _close(got.noc_pred, ref.noc_pred, rtol=1e-4)
-    _close(got.proj_logstd, ref.proj_logstd, rtol=1e-4)
 
 
 # ---- score head (item 14) --------------------------------------------------

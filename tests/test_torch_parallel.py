@@ -1,10 +1,11 @@
 """The port's data-parallel layer (``monorun_tpu_torch/parallel/``) on two
 CPU processes over Gloo, with no JAX model compile.
 
-One module fixture starts two ranks (``tests/torch_parallel_child.py``,
-``parallel.init_distributed`` from torchrun's environment on 127.0.0.1)
-and, while they run, computes the one-process references here with the
-same thread count and deterministic algorithms:
+One fixture, once per test run, starts two ranks
+(``tests/torch_parallel_child.py``, ``parallel.init_distributed`` from
+torchrun's environment on 127.0.0.1) and, while they run, computes the
+one-process references here with the same thread count and deterministic
+algorithms:
 
 (a) ``dataset_shard`` against JAX's; the two ranks' ``allgather_results``
 against JAX's under the mocked processes of ``tests/test_dist_eval.py``, for
@@ -45,6 +46,16 @@ equal a one-process ``_run_val`` on the trained weights, bitwise.
 (d) The CLIs under ``torch.distributed.run`` are in
 ``tests/test_torch_parallel_cli.py``.
 
+The ranks and their references run once per test run (``ranks``, through
+``tests/torch_share.py:run_shared``; the weights' comparisons are taken
+there, ``step_errors``, so that no copy of the weights is shared); the
+tests that read them are in files that xdist hands out late:
+``test_torch_parallel_gather.py`` (3 tests, the first runs the ranks) and
+files of at most 2, which go out after every file of 3
+(``test_torch_parallel_X.py`` for X in eval, validation, losses, control,
+gradients, params, stats, rows, equal, score_head and units_factor, _sum,
+_ema, _bn, _sampler). This file keeps (a)'s one-process cases.
+
 Tolerances: losses and ``mean_iou`` (the ranks' values summed) to 1e-5
 relative; each gradient to 1e-5 of its leaf's largest entry (the batch's
 sum split in two partial sums; the convolutions see 2 images instead of
@@ -63,6 +74,7 @@ ranks bitwise.
 """
 
 import dataclasses
+import hashlib
 import os
 import socket
 import subprocess
@@ -89,13 +101,12 @@ from monorun_tpu_torch.models.detector import MonoRUn, init_random_weights
 from monorun_tpu_torch.utils.draws import train_draws
 from monorun_tpu_torch.utils.synthetic import synthetic_scene_batch, synthetic_train_batch
 
-from test_dist_eval import _simulate_multiprocess_gather
 from test_torch_eval_path import configs
 from test_torch_train_cli import NARROW_OPTIONS
 from test_torch_train_loop import small_data, write_small_kitti
 from test_torch_train_step import tiny_train_config
 from torch_parallel_child import gather_cases, run_step, run_units, score_head_on_rows
-from torch_share import cpu_share  # noqa: F401
+from torch_share import cpu_share, pack, run_shared, unpack  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 CHILD = Path(__file__).resolve().parent / "torch_parallel_child.py"
@@ -109,6 +120,7 @@ TIMEOUT = 600
 UNIT_SUMS = ("avg_factor", "weighted", "unweighted", "kl")   # the ranks' shares sum
 UNIT_EQUAL = ("kl_ema", "bn_mean", "bn_var")                # every rank holds the global
 UNIT_ROWS = ("bn_out", "sampler")                           # the ranks' rows concatenate
+UNITS = UNIT_SUMS + UNIT_EQUAL + UNIT_ROWS   # test_each_batch_wide_reduction_matches' cases
 
 
 def free_port() -> int:
@@ -214,12 +226,11 @@ def one_process_val(job, sd):
     return ds.results, ap
 
 
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("parallel")
-    threads = max(1, torch.get_num_threads() // 2)
-    job = make_job(tmp, threads)
+def run_ranks(job, tmp):
+    """Two ranks on ``job`` and, while they run, the one-process references
+    here with the same thread count and deterministic algorithms."""
     torch.save(job, tmp / "job.pt")
+    threads = job["threads"]
     t0 = time.perf_counter()
     port = free_port()
     procs = [subprocess.Popen([sys.executable, str(CHILD), str(tmp / "job.pt"), str(r),
@@ -255,8 +266,73 @@ def ranks(tmp_path_factory):
     print(f"two ranks and the references: {time.perf_counter() - t0:.1f} s")
     got = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
     grads = torch.load(tmp / "rank0_grads.pt", weights_only=False)
-    return dict(job=job, ref=ref, units=units, ranks=got, grads=grads, shard_runs=shard_runs,
-                score_rows=score_rows, val_ref=val_ref)
+    errors = {name: step_errors(ref[name], grads[name], job["sd"], float(
+        ttrain.make_lr_schedule(c["cfg"], 100)(0))) for name, c in job["steps"].items()}
+    for step in ref.values():
+        del step["grads"], step["params"]
+    return dict(ref=ref, units=units, ranks=got, step_errors=errors, shard_runs=shard_runs,
+                score_rows=score_rows, val_ref=val_ref, job_digest=job_digest(job))
+
+
+def step_errors(ref, got, start, lr):
+    """What the gradient and parameter tests hold of one step, leaf by leaf,
+    so that the shared result carries no copy of the weights: both sides'
+    leaf names; each gradient's error over its leaf's scale where the
+    one-process gradient is not all zero, and elsewhere whether the ranks'
+    is; each parameter's largest error in its change where the gradient
+    stands above 1e-3 of its leaf's scale, and in its value, each beside
+    what is allowed (1e-4 lr and 2 lr, both plus two roundings of the
+    parameter: the change is read as a difference of parameters)."""
+    out = dict(ref_names=list(ref["grads"]), got_names=list(got["grads"]), grad_rel={},
+               zero_leaf_got_any={}, params={})
+    for n, g in ref["grads"].items():
+        if g.abs().max() > 0:
+            out["grad_rel"][n] = _rel(got["grads"][n], g)
+        else:
+            out["zero_leaf_got_any"][n] = bool(got["grads"][n].any())
+    for n, p in ref["params"].items():
+        g = ref["grads"][n]
+        big = (g.abs() > 1e-3 * g.abs().max().clamp(min=1e-30)).numpy()
+        rounding = 2 * float(np.spacing(np.float32(p.abs().max())))
+        du_ref = (p - start[n]).numpy()[big]
+        du_got = (got["params"][n] - start[n]).numpy()[big]
+        out["params"][n] = (float(np.max(np.abs(du_got - du_ref), initial=0.0)),
+                            1e-4 * lr + rounding,
+                            float((got["params"][n] - p).abs().max()), 2 * lr + rounding)
+    return out
+
+
+def job_digest(job):
+    """A digest of the job's weights and steps: a module's own job is the one
+    the ranks ran."""
+    h = hashlib.sha256()
+    tensors = dict(job["sd"], **{f"{name}/{k}": v for name, c in job["steps"].items()
+                                 for k, v in c["batch"].items()})
+    for name, c in job["steps"].items():
+        tensors.update({f"{name}/draws/{f}/{i}": t for f, v in c["draws"]._asdict().items()
+                        if v is not None for i, t in enumerate(v if isinstance(v, tuple)
+                                                               else (v,))})
+    for k, v in tensors.items():
+        h.update(k.encode())
+        h.update(v.numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """The job, made in each module (its mini-KITTI directory under the
+    module's own ``tmp``), and ``run_ranks``' results, once per test run
+    (``run_shared``, through ``pack``)."""
+    tmp = tmp_path_factory.mktemp("parallel")
+    threads = max(1, torch.get_num_threads() // 2)
+    job = make_job(tmp, threads)
+    got = run_shared(
+        f"test_torch_parallel.run_ranks: {WORLD} Gloo ranks, make_job (tiny_train_config, "
+        f"global batch {B}x{H}x{W}, seeds 0-5, {EVAL_IMAGES}-image eval, {VAL_IMAGES}-image "
+        f"validation), {threads} threads", lambda: pack(run_ranks(job, tmp)))
+    got = unpack(got)
+    assert got.pop("job_digest") == job_digest(job)
+    return dict(job=job, **got)
 
 
 def _rel(got, ref):
@@ -274,25 +350,6 @@ def test_dataset_shard_matches_jax(n, world):
                                       jdataset_shard(n, rank=r, world=world))
 
 
-@pytest.mark.parametrize("total", [7, 8])
-def test_allgather_results_matches_jax_two_processes(ranks, monkeypatch, total):
-    """Each rank's gathered list equals JAX's ``allgather_results`` of rank 0
-    under the mocked two processes, field by field and bitwise."""
-    rng = np.random.default_rng(total)
-    golden = {i: {"boxes": rng.normal(size=(4, 8)).astype(np.float32),
-                  "valid": rng.integers(0, 2, size=(4,)).astype(bool)} for i in range(total)}
-    local_of_rank = [{int(i): golden[int(i)] for i in jdataset_shard(total, rank=r, world=WORLD)}
-                     for r in range(WORLD)]
-    want = _simulate_multiprocess_gather(monkeypatch, WORLD, total, local_of_rank)
-    for got in (r["gather"][total] for r in ranks["ranks"]):
-        assert len(got) == total
-        for g, w in zip(got, want):
-            assert sorted(g) == sorted(w)
-            for k in w:
-                assert g[k].dtype == w[k].dtype
-                np.testing.assert_array_equal(g[k], w[k])
-
-
 def test_allgather_results_at_world_one_is_a_reassembly():
     local = {3: {"a": np.zeros(2)}, 0: {"a": np.ones(2)}}
     got = parallel.allgather_results(local, 5)
@@ -306,83 +363,6 @@ def test_allgather_results_at_world_one_is_a_reassembly():
 
 
 STEPS = ("plain", "scene_debug")
-
-
-@pytest.mark.parametrize("name", STEPS)
-def test_each_rank_has_positive_score_rows(ranks, name):
-    """The score head's reductions see real rows on every rank."""
-    counts = [r["steps"][name]["pose_ok"] for r in ranks["ranks"]]
-    assert all(c > 0 for c in counts), counts
-    assert sum(counts) == ranks["ref"][name]["pose_ok"]
-
-
-@pytest.mark.parametrize("name", STEPS)
-def test_losses_match_the_one_process_step(ranks, name):
-    ref = ranks["ref"][name]["metrics"]
-    got = [r["steps"][name]["metrics"] for r in ranks["ranks"]]
-    assert all(g == got[0] for g in got), "the ranks logged different metrics"
-    errs = {k: abs(got[0][k] - v) / max(abs(v), 1e-12) for k, v in ref.items()
-            if k != "nonfinite_grad_leaves"}
-    print(f"{name}: worst loss relative error {max(errs.values()):.3g} (allowed 1e-5)")
-    for k, v in ref.items():
-        np.testing.assert_allclose(got[0][k], v, rtol=1e-5, atol=1e-12, err_msg=k)
-    if name == "scene_debug":
-        assert ref["mean_iou"] > 0.1
-
-
-@pytest.mark.parametrize("name", STEPS)
-def test_gradients_match_the_one_process_step(ranks, name):
-    ref = ranks["ref"][name]["grads"]
-    got = ranks["grads"][name]["grads"]
-    assert list(got) == list(ref)
-    worst = {n: _rel(got[n], ref[n]) for n in ref if ref[n].abs().max() > 0}
-    bad = {n: e for n, e in worst.items() if not e <= 1e-5}
-    print(f"{name}: worst gradient error {max(worst.values()):.3g} of its leaf's scale "
-          f"(allowed 1e-5)")
-    assert not bad, bad
-    for n in set(ref) - set(worst):
-        assert not got[n].any(), n
-
-
-@pytest.mark.parametrize("name", STEPS)
-def test_parameters_after_one_step_match(ranks, name):
-    """The step's change of each parameter to 1e-4 of lr where the gradient
-    stands above 1e-3 of its leaf's scale; everywhere within 2 lr; both
-    plus two roundings of the parameter (the change is read as a difference
-    of parameters)."""
-    ref, got = ranks["ref"][name], ranks["grads"][name]
-    lr = float(ttrain.make_lr_schedule(ranks["job"]["steps"][name]["cfg"], 100)(0))
-    start = ranks["job"]["sd"]
-    for n, p in ref["params"].items():
-        g = ref["grads"][n]
-        big = (g.abs() > 1e-3 * g.abs().max().clamp(min=1e-30)).numpy()
-        rounding = 2 * float(np.spacing(np.float32(p.abs().max())))
-        du_ref = (p - start[n]).numpy()[big]
-        du_got = (got["params"][n] - start[n]).numpy()[big]
-        np.testing.assert_allclose(du_got, du_ref, rtol=0, atol=1e-4 * lr + rounding,
-                                   err_msg=n)
-        np.testing.assert_allclose(got["params"][n].numpy(), p.numpy(), rtol=0,
-                                   atol=2 * lr + rounding, err_msg=n)
-
-
-@pytest.mark.parametrize("name", STEPS)
-def test_loss_ema_and_score_statistics_match(ranks, name):
-    ref = ranks["ref"][name]
-    for r in ranks["ranks"]:
-        got = r["steps"][name]
-        np.testing.assert_allclose(float(got["loss_ema"]), float(ref["loss_ema"]), rtol=1e-6)
-        for k in ("mean", "var"):
-            assert _rel(got["bn"][k], ref["bn"][k]) <= 1e-3, k
-    moved = ref["bn"]["mean"].abs().max() > 0
-    assert moved, "the score BatchNorm's statistics did not move"
-
-
-@pytest.mark.parametrize("name", STEPS)
-def test_ranks_hold_equal_state_after_the_step(ranks, name):
-    """Gradients, parameters, loss_ema and the score statistics bit-equal
-    on both ranks (checked over the group in the children)."""
-    assert all(r["steps"][name]["same_on_every_rank"] for r in ranks["ranks"])
-    assert [r["rank"] for r in ranks["ranks"]] == list(range(WORLD))
 
 
 def _unit_errors(ranks, key):
@@ -399,88 +379,7 @@ def _unit_error(k, per_rank, ref):
     return _rel(torch.cat(per_rank).detach(), ref.detach())
 
 
-@pytest.mark.parametrize("key", UNIT_SUMS + UNIT_EQUAL + UNIT_ROWS)
-def test_each_batch_wide_reduction_matches(ranks, key):
+def check_unit(ranks, key):
+    """``test_each_batch_wide_reduction_matches``: the reduction ``key``."""
     err = _unit_errors(ranks, "units")[key]
     assert err <= 1e-6, (key, err)
-
-
-@pytest.mark.parametrize("dtype", SCORE_DTYPES)
-def test_score_head_on_captured_rows_matches_one_process(ranks, dtype):
-    """The card's ill-conditioned score rows: every rank holds the one
-    process's loss, gradients and running statistics."""
-    ref = ranks["score_rows"][dtype]
-    rows = ranks["job"]["score_rows"]["rows"]
-    assert [int((rows["rank"] == r).sum()) for r in range(WORLD)] == [10, 13]
-    assert float(rows["pose_cov"].abs().max()) > 4e4
-    for r, got in enumerate(rank["score_rows"][dtype] for rank in ranks["ranks"]):
-        errs = {n: _rel(got["grads"][n], g) for n, g in ref["grads"].items()}
-        errs.update({k: _rel(got[k], ref[k]) for k in ("loss", "running_mean", "running_var")})
-        print(f"rank {r} {dtype}: the score head within {max(errs.values()):.3g} of its scale")
-        assert max(errs.values()) <= SCORE_DTYPES[dtype], (r, errs)
-
-
-def test_negative_control_without_global_sums_fails(ranks):
-    """With ``global_sum`` the identity in the ranks, every unit reduction
-    and the step's losses and statistics miss the one-process values."""
-    errs = _unit_errors(ranks, "control_units")
-    assert all(e > 1e-3 for e in errs.values()), errs
-    ref = ranks["ref"]["plain"]
-    ctl = [r["control_step"] for r in ranks["ranks"]]
-    loss_errs = {k: abs(sum(c["metrics"][k] for c in ctl) / WORLD - v) / max(abs(v), 1e-12)
-                 for k, v in ref["metrics"].items() if k.startswith("loss") and v}
-    print(f"negative control: losses off by up to {max(loss_errs.values()):.3g}")
-    assert max(loss_errs.values()) > 1e-3
-    assert abs(float(ctl[0]["loss_ema"]) - float(ctl[1]["loss_ema"])) > 0
-    assert _rel(ctl[0]["bn"]["mean"], ref["bn"]["mean"]) > 1e-3
-
-
-# ---- (c) distributed evaluation ------------------------------------------------------
-
-
-def test_distributed_eval_gathers_every_index_once(ranks):
-    for r in ranks["ranks"]:
-        results = r["eval_results"]
-        assert len(results) == EVAL_IMAGES and all(res is not None for res in results)
-
-
-def test_each_rank_equals_a_one_process_run_over_its_shard(ranks):
-    gathered = ranks["ranks"][0]["eval_results"]
-    for r, (results, _) in enumerate(ranks["shard_runs"]):
-        shard = set(parallel.dataset_shard(EVAL_IMAGES, r, WORLD).tolist())
-        assert {i for i, res in enumerate(results) if res is not None} == shard
-        for i in shard:
-            for k, v in results[i].items():
-                assert np.array_equal(gathered[i][k], v), (i, k)
-    for other in ranks["ranks"][1:]:
-        for a, b in zip(other["eval_results"], gathered):
-            assert all(np.array_equal(a[k], b[k]) for k in b)
-
-
-def test_distributed_ap_is_evaluate_of_the_gathered_list(ranks):
-    ds = KITTI3DDataset(ranks["job"]["eval"]["root"], "train_list.txt")
-    want = ds.evaluate(ranks["ranks"][0]["eval_results"], print_summary=False)
-    for r in ranks["ranks"]:
-        assert list(r["eval_ap"]) == list(want)
-        assert all(r["eval_ap"][k] == v for k, v in want.items())
-
-
-def test_train_detector_validates_on_every_rank(ranks):
-    """``train_detector``'s validation at two ranks: each rank detects one
-    of the two batches of 2 that a one-process run makes, with that run's
-    seed (the batch's first index), and the AP that rank 0 alone logs,
-    and every rank evaluated, is a one-process ``_run_val``'s on the same
-    weights, per-image results bitwise."""
-    loops = [r["val_loop"] for r in ranks["ranks"]]
-    assert [v["runs"] for v in loops] == [[(0, 2)], [(2, 2)]]
-    assert [len(v["logged"]) for v in loops] == [1, 0]
-    step, ap = loops[0]["logged"][0]
-    results, want = ranks["val_ref"]
-    assert step == 1 and list(ap) == list(want) and ap == want
-    assert sum(int(r["valid"].sum()) for r in results) >= VAL_IMAGES
-    for v in loops:
-        (gathered,) = v["results"]
-        assert len(gathered) == len(results) == VAL_IMAGES
-        for got, ref in zip(gathered, results):
-            assert sorted(got) == sorted(ref)
-            assert all(np.array_equal(got[k], ref[k]) for k in ref)

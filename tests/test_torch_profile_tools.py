@@ -10,6 +10,10 @@
   convolution);
 - ``tools/profile_trace.py`` runs on the CPU profiler and its stage table
   sums to its total.
+
+The ladder's stage coverage and the trace are in
+``test_torch_profile_tools_trace.py``: files of at most 3 tests, which xdist
+hands out late (ROADMAP's test-time budget).
 """
 
 import dataclasses
@@ -21,7 +25,7 @@ from torch import nn
 
 from monorun_tpu_torch.config import get_config as tget_config
 from monorun_tpu_torch.models.detector import MonoRUn
-from monorun_tpu_torch.tools import flop_budget, profile_stages, profile_trace
+from monorun_tpu_torch.tools import flop_budget, profile_stages
 from monorun_tpu_torch.utils import stages
 from torch.profiler import record_function
 
@@ -51,15 +55,21 @@ def test_stage_is_a_shared_null_context_without_a_timer(served):
     assert seen == ["pnp"] and model.stage_hook is None
 
 
-def test_stages_cover_the_forward_in_order(served):
-    _, session, requests = served
-    result = profile_stages.ladder(session, requests, forwards=2, warmup=1)
-    for records in result["forward_records"]:
-        assert [r["stage"] for r in records] == list(stages.STAGES)
-        assert all(r["ms"] > 0 and r["launches"] == {} for r in records)
-    assert [s["stage"] for s in result["stages"]] == list(stages.STAGES)
-    assert result["stage_sum_ms"] == pytest.approx(sum(s["ms"] for s in result["stages"]))
-    assert result["unsplit_ms"] > 0 and len(result["unsplit_ms_each"]) == 2
+def test_paired_split_is_the_median_of_each_forwards_own_ratio():
+    """Hand-made records: three pairs whose ratios are 1.0, 1.1 and 0.5.
+    The median of the pairs is 1.0, where the ratio of the medians taken
+    apart (stage sums 10, 22, 30 over unsplit 10, 20, 60) is 22 / 20 = 1.1:
+    a forward that ran slow beside a slow partner does not count as split
+    time."""
+    def records(*ms):
+        return [dict(stage=f"s{i}", ms=m, launches={}) for i, m in enumerate(ms)]
+
+    unsplit = [10.0, 20.0, 60.0]
+    runs = [records(4.0, 6.0), records(12.0, 10.0), records(25.0, 5.0)]
+    assert profile_stages.paired_split(unsplit, runs) == pytest.approx(1.0, rel=1e-12)
+    assert profile_stages.paired_split(unsplit[:2], runs[:2]) == pytest.approx(1.05, rel=1e-12)
+    with pytest.raises(ValueError):
+        profile_stages.paired_split(unsplit, runs[:2])
 
 
 @pytest.mark.parametrize("timer", ["ladder", "record_function"])
@@ -126,21 +136,6 @@ def test_flop_budget_is_the_exact_convolution_count():
     c = cfg.neck.out_channels
     level0 = 2 * B * c * c * 9 * (cfg.data.pad_height // 4) * (cfg.data.pad_width // 4)
     assert torso - lazy_torso == 3 * level0
-
-
-def test_profile_trace_stage_table_sums_to_its_total(served, tmp_path):
-    _, session, requests = served
-    table = tmp_path / "trace.txt"
-    result = profile_trace.trace_forwards(session, requests, forwards=2, top_n=5, table=table)
-    rows = result["stages"]
-    assert [r["stage"] for r in rows] == [*stages.STAGES, profile_trace.OUTSIDE]
-    assert result["stage_ranges"] == 2 * len(stages.STAGES)
-    assert sum(r["ms"] for r in rows) == pytest.approx(result["ms_per_forward"], rel=1e-9)
-    assert sum(r["launches"] for r in rows) == pytest.approx(result["launches_per_forward"])
-    assert sum(r["share"] for r in rows) == pytest.approx(1.0)
-    assert all(r["ms"] > 0 and r["launches"] > 0 for r in rows[:-1])
-    assert result["covered_share"] > 0.9 and result["idle_share"] is None
-    assert len(result["top"]) == 5 and "aten::" in table.read_text()
 
 
 @pytest.mark.parametrize("tool", ["parity", "profile_stages", "flop_budget", "profile_trace"])

@@ -11,6 +11,10 @@ samples exactly on a map edge (where the clamp's gradient is 1/2, as
 
 Tolerance: 1e-5 of each gradient's largest entry, the summation order of
 the scatter into the levels and of the RoI gradient's sums.
+
+The plain gradients against ``jax.grad`` are in
+``test_torch_roi_align_grad_{7x7,14x14}_{fine,coarse}.py``, a case each: files
+of at most 3 tests, which xdist hands out late (ROADMAP's test-time budget).
 """
 
 import jax
@@ -42,6 +46,14 @@ EDGES = np.array(
     ],
     np.float32,
 )
+
+
+# test_plain_gradients_match_jax_grad's cases, with the ids pytest gives the
+# tuples, one case a file (test_torch_roi_align_grad_*.py)
+GRAD_CASES = [pytest.param(out, finest, ratio, id=f"out_size{i}-{finest}-{ratio}")
+              for i, (out, finest, ratio) in enumerate(
+                  [((7, 7), 4.0, 3), ((7, 7), 20.0, 3), ((14, 14), 4.0, 2),
+                   ((14, 14), 28.0, 2)])]
 
 
 def _inputs(seed, n=40):
@@ -80,12 +92,8 @@ def _close(got, ref, rtol=1e-5):
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=rtol * scale)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize(
-    "out_size,finest,max_ratio",
-    [((7, 7), 4.0, 3), ((7, 7), 20.0, 3), ((14, 14), 4.0, 2), ((14, 14), 28.0, 2)],
-)
-def test_plain_gradients_match_jax_grad(seed, out_size, finest, max_ratio):
+def check_plain_gradients(seed, out_size, finest, max_ratio):
+    """``test_plain_gradients_match_jax_grad``."""
     feats, rois = _inputs(seed)
     rng = np.random.default_rng(100 + seed)
     grad_out = rng.normal(size=(rois.shape[0],) + out_size + (C,)).astype(np.float32)

@@ -14,14 +14,16 @@ pyramid (level 0 stored at stride 4): random boxes, samples outside
 [-1, size] on every side, RoIs on the last row and column (the far tap
 clamped onto the near one), lazy-level slivers whose samples lie more than
 one cell apart, zero-size padded RoIs.
+
+The merged taps against the JAX align are in
+``test_torch_roi_align_merge_jax.py``: files of at most 3 tests, which xdist
+hands out late (ROADMAP's test-time budget).
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from monorun_tpu.ops import roi_align as jra
 from monorun_tpu_torch.ops import roi_align as tra
 
 from torch_share import cpu_share  # noqa: F401
@@ -78,17 +80,6 @@ def _rebuild(feats, taps):
     w = taps.row_w[:, :, None, :, None] * taps.col_w[:, None, :, None, :]
     idx = torch.where(w != 0, idx, 0)
     return (w.double()[..., None] * flat[idx].double()).sum((3, 4))
-
-
-@pytest.mark.parametrize("out_size,finest,max_ratio", CASES)
-def test_merged_taps_rebuild_the_jax_align(out_size, finest, max_ratio):
-    feats, rois = _pyramid(), _rois()
-    got = _rebuild(feats, _taps(rois, out_size, finest, max_ratio)).numpy()
-    ref = np.asarray(jra.multilevel_roi_align(
-        [jnp.asarray(f) for f in feats], jnp.asarray(rois), STRIDES, out_size, finest,
-        sampling_ratio=0, max_ratio=max_ratio, long_span_cap=CAP))
-    assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("out_size,finest,max_ratio", CASES)

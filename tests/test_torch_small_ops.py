@@ -7,6 +7,12 @@ shoelace sums in float32 on boxes of side up to 4; both packages run
 the same construction in the same order), the small-matrix functions to
 1e-4 relative (an unrolled Cholesky of a 5x5 SPD matrix with a condition
 number up to about 1e3, float32).
+
+The IoUs' cases are in files of at most 3 tests, which xdist hands out
+late (ROADMAP's test-time budget): the aligned rotated IoU in
+``test_torch_small_ops_rotated.py`` (its last criterion in
+``test_torch_small_ops_iou3d.py``), the 3D overlaps and the
+dimension-only IoU in ``test_torch_small_ops_iou3d.py``.
 """
 
 import jax.numpy as jnp
@@ -43,8 +49,8 @@ def _close(got, ref, atol=0.0, rtol=0.0):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("criterion", [-1, 0, 1, 2])
-def test_rotated_iou_aligned_matches_jax(criterion):
+def check_rotated_iou_aligned(criterion):
+    """``test_rotated_iou_aligned_matches_jax``."""
     rng = np.random.default_rng(criterion + 1)
     a, b = _rects(rng, 64), _rects(rng, 64)
     b[:8] = a[:8]                                 # identical pairs: IoU 1
@@ -53,25 +59,6 @@ def test_rotated_iou_aligned_matches_jax(criterion):
     ref = jri.rotated_iou_aligned(jnp.asarray(a), jnp.asarray(b), criterion)
     _close(got, ref, atol=IOU_ATOL)
     assert got.shape == (64,) and bool((got > 0).any())
-
-
-def test_bbox3d_overlaps_matches_jax():
-    rng = np.random.default_rng(7)
-    a, b = _boxes7(rng, 6), _boxes7(rng, 9)
-    b[:3] = a[:3]
-    got = tri.bbox3d_overlaps(torch.from_numpy(a), torch.from_numpy(b))
-    ref = jri.bbox3d_overlaps(jnp.asarray(a), jnp.asarray(b))
-    assert got.shape == (6, 9)
-    _close(got, ref, atol=IOU_ATOL)
-    np.testing.assert_allclose(np.diag(got.numpy()[:3, :3]), 1.0, atol=IOU_ATOL)
-
-
-def test_dimonly_iou_aligned_matches_jax():
-    rng = np.random.default_rng(8)
-    a = rng.uniform(0.5, 4.5, (32, 3)).astype(np.float32)
-    b = rng.uniform(0.5, 4.5, (32, 3)).astype(np.float32)
-    got = tri.dimonly_iou_aligned(torch.from_numpy(a), torch.from_numpy(b))
-    _close(got, jri.dimonly_iou_aligned(jnp.asarray(a), jnp.asarray(b)), atol=IOU_ATOL)
 
 
 def _spd(rng, batch, n):

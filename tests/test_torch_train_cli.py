@@ -6,9 +6,9 @@ parameters float32, unchanged, and in train mode; ``init_inference`` on
 the last ``step_N`` gives the detections, exactly, of a session built
 from the trained model in memory.
 
-Part (e) of ``tests/test_torch_train_entry.py``'s plan, in a file of its
-own of at most 5 tests, so that xdist hands it out after
-``tests/test_train_step.py`` (ROADMAP's test-time budget).
+Part (e) of ``tests/test_torch_train_entry.py``'s plan, in files of at most
+3 tests, which xdist hands out late (ROADMAP's test-time budget): the
+command line is in ``test_torch_train_cli_tool.py``.
 """
 
 import copy
@@ -16,8 +16,6 @@ import json
 import math
 import os
 import shutil
-import subprocess
-import sys
 
 import pytest
 import torch
@@ -25,7 +23,6 @@ import torch
 from monorun_tpu_torch import train as ttrain
 from monorun_tpu_torch.apis import inference as tinf
 from monorun_tpu_torch.apis import train as tapi
-from monorun_tpu_torch.config import get_config as tget_config
 from monorun_tpu_torch.tools import train as ttools
 
 from test_torch_train_loop import write_small_kitti
@@ -137,18 +134,3 @@ def test_init_inference_serves_a_port_checkpoint(own_run):
             assert torch.equal(getattr(got_det, name), want), name
     with pytest.raises(FileNotFoundError):
         tinf.init_inference(cfg, os.path.join(own_run["workdir"], "step_3"), device="cpu")
-
-
-def test_tools_train_cli():
-    out = subprocess.run([sys.executable, "-m", "monorun_tpu_torch.tools.train", "--help"],
-                         capture_output=True, text=True, timeout=120,
-                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    assert out.returncode == 0
-    for flag in ("--work-dir", "--resume-from", "--load-from", "--seed", "--max-steps",
-                 "--no-validate", "--cfg-options", "--device", "--distributed"):
-        assert flag in out.stdout, flag
-    with pytest.raises(RuntimeError, match="torch.distributed.run"):
-        ttools.main(["kitti_multiclass", "--distributed"])    # not launched by torchrun
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            tapi.train_detector(tget_config("kitti_multiclass"), "unused")

@@ -24,7 +24,12 @@ moments, which carry no such noise, leaf by leaf to 1e-2 of the leaf's
 largest value (observed: first 2.7e-3, second 3.2e-4, both in
 ``noc_head``, whose gradients pass the PnP);
 ``train_log.jsonl``'s records (keys in order, ``step``, ``epoch``) and the
-``step_N`` directories the same.
+``step_N`` directories the same. Each loop runs once per test run
+(``jax_loop``, ``port_loop``: ``tests/torch_share.py:run_shared``), and the
+tests are spread over files that xdist hands out late: this file of 3, whose
+first test runs both, and files of at most 2 that read them, which go out
+after every file of 3 (``test_torch_train_entry_X.py`` for X in rpn, cls,
+heads, pose, score and totals).
 
 (e) The port's own run through ``tools.train`` is in
 ``tests/test_torch_train_cli.py``.
@@ -35,6 +40,7 @@ import json
 import math
 import os
 import shutil
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -57,9 +63,10 @@ from monorun_tpu_torch.utils.weights import from_jax_params, to_jax_leaves
 from test_torch_modules import _randomize
 from test_torch_train_loop import small_data, write_small_kitti
 from test_torch_train_step import (
-    AFTER_PNP, LOSSES, _rel, jax_train_draws, proposal_count, tiny_train_config,
+    AFTER_PNP, _rel, draw_arrays, draw_counts, jax_train_draws, tiny_train_config,
+    train_draws_of,
 )
-from torch_share import cpu_share  # noqa: F401
+from torch_share import cpu_share, run_shared  # noqa: F401
 
 H, W = 64, 128
 
@@ -115,85 +122,147 @@ def structural_train_state(variables):
     return create
 
 
-def with_jax_draws(jcfg):
-    """The port's ``train_step``, given each call the draws of the next key
-    that JAX's loop splits from ``PRNGKey(seed + 1)``."""
-    keys = [jax.random.PRNGKey(jcfg.train.seed + 1)]
+def jax_loop_draws(jcfg, tcfg, steps):
+    """The draws of the keys that JAX's loop splits from ``PRNGKey(seed +
+    1)``, one per step, as ``draw_arrays``; made for the loop's batches
+    (``samples_per_device`` images in the pad, ``max_gt`` GT slots)."""
+    n = jcfg.train.samples_per_device
+    counts = draw_counts(tcfg, torch.zeros(n, jcfg.data.pad_height, jcfg.data.pad_width, 3))
+    key, out = jax.random.PRNGKey(jcfg.train.seed + 1), []
+    for _ in range(steps):
+        key, sub = jax.random.split(key)
+        out.append(draw_arrays(jax_train_draws(jcfg, sub, *counts, jcfg.data.max_gt)))
+    return out
 
-    def step(model, opt, state, batch, draws=None, generator=None, **kw):
-        keys[0], sub = jax.random.split(keys[0])
-        cfg = model.cfg
-        with torch.no_grad():
-            cls, _ = model.rpn_head(model.extract_feats(batch["images"])
-                                    [cfg.rpn.starting_level:])
-        sizes = [(c.shape[1], c.shape[2]) for c in cls]
-        draws = jax_train_draws(jcfg, sub, sum(c[0].numel() for c in cls),
-                                proposal_count(cfg, sizes, cls[0].shape[-1]),
-                                batch["gt_boxes"].shape[1])
-        return ttrain.train_step(model, opt, state, batch, draws, generator, **kw)
+
+def with_draws(draws):
+    """The port's ``train_step``, given each call the next of ``draws``."""
+    draws = [train_draws_of(d) for d in draws]
+
+    def step(model, opt, state, batch, _=None, generator=None, **kw):
+        assert batch["gt_boxes"].shape[1] == model.cfg.data.max_gt   # as the draws were made
+        return ttrain.train_step(model, opt, state, batch, draws.pop(0), generator, **kw)
 
     return step
 
 
+SETTING = (f"entry_config(tiny_train_config(kitti_multiclass_lidar_supv)), float32, "
+           f"write_small_kitti(3 images, seed 2) in a {H}x{W} pad, init_detector(PRNGKey(0), "
+           "fast=True), _randomize(seed 0), 2 epochs of 1 step")
+
+
+def log_and_steps(d):
+    """A work dir's ``train_log.jsonl`` text and its ``step_N`` names, the
+    checkpoints removed (about 0.5 GB each)."""
+    with open(os.path.join(d, "train_log.jsonl")) as f:
+        log = f.read()
+    steps = sorted(n for n in os.listdir(d) if n.startswith("step_"))
+    for name in steps:
+        shutil.rmtree(os.path.join(d, name))
+    return log, steps
+
+
+def jax_loop():
+    """JAX's ``train_detector`` on the small directory, once per test run
+    (``run_shared``): the init, each step's draws for the port, the logged
+    metrics, the parameters, ``loss_ema``, Adam's state and the work dir's
+    log, as arrays."""
+    def compute():
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "small_kitti")
+            write_small_kitti(root, 3, seed=2)
+            jcfg = entry_config(get_config, root)
+            _, variables = init_detector(jcfg, jax.random.PRNGKey(0), (H, W), fast=True)
+            variables = _randomize(variables)
+            pth = os.path.join(tmp, "init.pth")
+            torch.save({"state_dict": from_jax_params(variables["params"],
+                                                      variables["batch_stats"])}, pth)
+            jdir, jlog = os.path.join(tmp, "jax"), []
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(japi, "create_train_state", structural_train_state(variables))
+                mp.setattr(japi, "make_mesh",
+                           lambda: jmesh.make_mesh(devices=jax.devices()[:1]))
+                mp.setattr(japi, "MetricLogger", recording_logger(japi.MetricLogger, jlog))
+                jstate = japi.train_detector(jcfg, jdir, load_from=pth)
+            log, steps = log_and_steps(jdir)
+            adam = jax_adam_state(jstate.opt_state)
+            return dict(
+                variables=jax.tree.map(np.asarray, variables), log=np.array(log),
+                steps=np.array(steps), records=jlog,
+                draws=jax_loop_draws(jcfg, entry_config(tget_config, root), 2),
+                params=flat_leaves(jstate.params), step=np.asarray(jstate.step),
+                loss_ema=np.asarray(jstate.loss_ema), adam_count=np.asarray(adam.count),
+                mu=flat_leaves(adam.mu), nu=flat_leaves(adam.nu))
+
+    return run_shared(f"test_torch_train_entry.jax_loop: {SETTING}", compute)
+
+
+def port_loop(ref):
+    """The port's ``train_detector`` on the same directory, from JAX's init
+    (through a ``.pth``) and with JAX's draws, once per test run: its logged
+    metrics, parameters, ``loss_ema``, Adam's state (as JAX leaves) and the
+    work dir's log."""
+    def compute():
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "small_kitti")
+            write_small_kitti(root, 3, seed=2)
+            tcfg = entry_config(tget_config, root)
+            v = ref["variables"]
+            pth = os.path.join(tmp, "init.pth")
+            torch.save({"state_dict": from_jax_params(v["params"], v["batch_stats"])}, pth)
+            tdir, tlog, made = os.path.join(tmp, "torch"), [], []
+
+            def create(*args, **kw):
+                made.append(ttrain.create_train_state(*args, **kw))
+                return made[-1]
+
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(tapi, "create_train_state", create)
+                mp.setattr(tapi, "MetricLogger", recording_logger(tapi.MetricLogger, tlog))
+                mp.setattr(tapi, "train_step", with_draws(ref["draws"]))
+                model, tstate = tapi.train_detector(tcfg, tdir, load_from=pth, device="cpu")
+            log, steps = log_and_steps(tdir)
+            opt = made[0][2]
+            moments = {kind: to_jax_leaves(
+                {n: m for n, m, t in zip(opt.names, getattr(opt, kind), opt.trainable) if t},
+                list(ref[kind])) for kind in ("mu", "nu")}
+            trainable = sum(opt.trainable)
+            schedule = ttrain.make_lr_schedule(tcfg, 2)
+            return dict(
+                log=np.array(log), steps=np.array(steps), records=tlog,
+                params=to_jax_leaves(dict(model.named_parameters()), list(ref["params"])),
+                step=np.asarray(tstate.step), loss_ema=np.asarray(float(tstate.loss_ema)),
+                adam_count=np.asarray(opt.count), trainable=np.asarray(trainable),
+                lr=np.array([float(schedule(i)) for i in range(2)]), **moments)
+
+    return run_shared(f"test_torch_train_entry.port_loop: {SETTING}, JAX's draws", compute)
+
+
 @pytest.fixture(scope="module")
-def parity(tmp_path_factory):
-    root = tmp_path_factory.mktemp("small_kitti")
-    write_small_kitti(str(root), 3, seed=2)
-    jcfg, tcfg = entry_config(get_config, root), entry_config(tget_config, root)
-    _, variables = init_detector(jcfg, jax.random.PRNGKey(0), (H, W), fast=True)
-    variables = _randomize(variables)
-    pth = str(root / "init.pth")
-    torch.save({"state_dict": from_jax_params(variables["params"], variables["batch_stats"])},
-               pth)
-    jdir, tdir = str(root / "jax"), str(root / "torch")
-    jlog, tlog, made = [], [], []
-
-    def create(*args, **kw):
-        made.append(ttrain.create_train_state(*args, **kw))
-        return made[-1]
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tapi, "create_train_state", create)
-        mp.setattr(japi, "create_train_state", structural_train_state(variables))
-        mp.setattr(japi, "make_mesh", lambda: jmesh.make_mesh(devices=jax.devices()[:1]))
-        mp.setattr(japi, "MetricLogger", recording_logger(japi.MetricLogger, jlog))
-        mp.setattr(tapi, "MetricLogger", recording_logger(tapi.MetricLogger, tlog))
-        mp.setattr(tapi, "train_step", with_jax_draws(jcfg))
-        jstate = japi.train_detector(jcfg, jdir, load_from=pth)
-        model, tstate = tapi.train_detector(tcfg, tdir, load_from=pth, device="cpu")
-    schedule = ttrain.make_lr_schedule(tcfg, 2)
-    out = dict(jdir=jdir, tdir=tdir, jlog=jlog, tlog=tlog, jstate=jstate, model=model,
-               tstate=tstate, opt=made[0][2], jinit=flat_leaves(variables["params"]),
-               lr=[float(schedule(i)) for i in range(2)],
-               steps={d: sorted(n for n in os.listdir(d) if n.startswith("step_"))
-                      for d in (jdir, tdir)})
-    for d in (jdir, tdir):          # about 0.5 GB a checkpoint
-        for name in out["steps"][d]:
-            shutil.rmtree(os.path.join(d, name))
-    return out
+def parity():
+    jax_ref = jax_loop()
+    return dict(jax=jax_ref, port=port_loop(jax_ref))
 
 
-@pytest.mark.parametrize("name", LOSSES + ("mean_iou", "total_loss"))
-def test_loop_losses_match_jax(parity, name):
-    jlog, tlog = parity["jlog"], parity["tlog"]
+def check_loop_loss(parity, name):
+    """``test_loop_losses_match_jax``: ``name`` at both steps."""
+    jlog, tlog = parity["jax"]["records"], parity["port"]["records"]
     assert len(jlog) == len(tlog) == 2
     for step, (j, t) in enumerate(zip(jlog, tlog)):
+        j, t = float(j[name]), float(t[name])
         rtol = 1e-3 if (step or name in AFTER_PNP) else 1e-4
-        assert math.isfinite(t[name])
-        np.testing.assert_allclose(t[name], j[name], rtol=rtol,
-                                   atol=rtol * max(abs(j[name]), 1e-5),
+        assert math.isfinite(t)
+        np.testing.assert_allclose(t, j, rtol=rtol, atol=rtol * max(abs(j), 1e-5),
                                    err_msg=f"step {step + 1}")
 
 
 def test_loop_parameters_and_state_match_jax(parity):
-    jstate, model, tstate = parity["jstate"], parity["model"], parity["tstate"]
-    assert tstate.step == int(jstate.step) == 2
-    np.testing.assert_allclose(float(tstate.loss_ema), float(jstate.loss_ema), rtol=1e-4)
-    flat = flat_leaves(jstate.params)
-    got = to_jax_leaves(dict(model.named_parameters()), list(flat))
-    init = parity["jinit"]
-    lr = sum(parity["lr"])
-    for path, ref in flat.items():
+    jax_ref, port = parity["jax"], parity["port"]
+    assert int(port["step"]) == int(jax_ref["step"]) == 2
+    np.testing.assert_allclose(float(port["loss_ema"]), float(jax_ref["loss_ema"]), rtol=1e-4)
+    got, init = port["params"], flat_leaves(jax_ref["variables"]["params"])
+    lr = float(port["lr"].sum())
+    for path, ref in jax_ref["params"].items():
         atol = 2 * lr + 2 * np.spacing(np.abs(ref).max())
         np.testing.assert_allclose(got[path], ref, rtol=0, atol=atol, err_msg=path)
         # each leaf's change over the run, in norm (a loop that applied no
@@ -212,26 +281,20 @@ def test_loop_optimizer_state_matches_jax(parity):
     gradients and the second quadratic, so neither carries the +-lr noise
     of the update. A loop that rebuilt the optimizer between steps fails
     here (the count, and a first moment about half JAX's)."""
-    adam, opt = jax_adam_state(parity["jstate"].opt_state), parity["opt"]
-    assert opt.count == int(adam.count) == 2
+    jax_ref, port = parity["jax"], parity["port"]
+    assert int(port["adam_count"]) == int(jax_ref["adam_count"]) == 2
     for kind in ("mu", "nu"):
-        flat = flat_leaves(getattr(adam, kind))
-        named = {n: m for n, m, t in zip(opt.names, getattr(opt, kind), opt.trainable) if t}
-        assert len(flat) == len(named)
-        got = to_jax_leaves(named, list(flat))
+        flat, got = jax_ref[kind], port[kind]
+        assert len(flat) == int(port["trainable"])
         bad = {p: e for p, e in ((p, _rel(got[p], ref)) for p, ref in flat.items())
                if not e <= 1e-2}
         assert not bad, (kind, bad)
 
 
 def test_loop_logs_and_checkpoints_match_jax(parity):
-    jdir, tdir = parity["jdir"], parity["tdir"]
-    assert parity["steps"][jdir] == parity["steps"][tdir] == ["step_1", "step_2"]
-    logs = []
-    for d in (jdir, tdir):
-        with open(os.path.join(d, "train_log.jsonl")) as f:
-            logs.append([json.loads(ln) for ln in f])
-    jlog, tlog = logs
+    jax_ref, port = parity["jax"], parity["port"]
+    assert jax_ref["steps"].tolist() == port["steps"].tolist() == ["step_1", "step_2"]
+    jlog, tlog = ([json.loads(ln) for ln in str(d["log"]).splitlines()] for d in (jax_ref, port))
     assert [list(r) for r in tlog] == [list(r) for r in jlog]     # keys, in order
     assert [(r["step"], r["epoch"]) for r in tlog] == [(r["step"], r["epoch"]) for r in jlog] \
         == [(1, 0), (2, 1)]

@@ -5,9 +5,14 @@ images, batch 2, 2 MC samples, 2 LM iterations, the lidar NOC loss on),
 JAX variables with non-trivial values carried over by
 ``from_jax_train_state``, and every random draw of the step computed with the
 JAX calls on the JAX step's own split keys and injected as ``TrainDraws``.
-The JAX side is computed once per module under ``jax.jit``
+The JAX side is computed once per test run under ``jax.jit``
 (``jax.value_and_grad`` of ``_train_forward``, then the optimizer's
-update).
+update; ``jax_step``, through ``tests/torch_share.py:run_shared``), and so
+is the port's (``port_step``). The tests are spread over files that xdist
+hands out late: this file of 3, whose first test builds both, and files of
+at most 2 that read them, which go out after every file of 3
+(``test_torch_train_step_X.py`` for X in rpn, cls, heads, pose, score,
+totals and branches).
 
 Tolerances: every loss to 1e-5 relative (with a floor of 1e-5 of its
 scale); each parameter's gradient to 1e-4 of its leaf's largest entry
@@ -19,6 +24,7 @@ allows its 3D outputs; the parameters after one step as
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -28,22 +34,23 @@ import pytest
 import torch
 
 from monorun_tpu.config import get_config
-from monorun_tpu.models.detector import MonoRUn as JMonoRUn
 from monorun_tpu.models.detector import _train_forward
 from monorun_tpu.train import create_train_state
 from monorun_tpu.utils.synthetic import synthetic_train_batch
 from monorun_tpu_torch import train as ttrain
 from monorun_tpu_torch.config import get_config as tget_config
 from monorun_tpu_torch.models.detector import MonoRUn, TrainDraws
-from monorun_tpu_torch.utils.weights import from_jax_train_state, to_jax_leaves
+from monorun_tpu_torch.utils.weights import (from_jax_params, from_jax_train_state,
+                                             to_jax_leaves)
 
 from test_torch_modules import _randomize
-from torch_share import cpu_share  # noqa: F401
+from torch_share import cpu_share, pack, run_shared, unpack  # noqa: F401
 
 B, H, W = 2, 64, 128
 LOSSES = ("loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "loss_bbox", "loss_dim",
           "loss_noc", "loss_proj", "loss_calib", "loss_score")
 AFTER_PNP = ("loss_score", "mean_iou")
+LOSS_CASES = LOSSES + ("mean_iou", "total_loss")   # test_losses_match's cases, by file
 
 
 def tiny_train_config(get_cfg):
@@ -111,80 +118,141 @@ def _flat(tree):
             for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
+def draw_counts(tcfg, images):
+    """(anchors, proposals): the counts the step's sampler draws are made
+    for, from the shapes of the port's RPN outputs on ``images``."""
+    model = MonoRUn(tcfg)
+    with torch.no_grad():
+        cls, _ = model.rpn_head(model.extract_feats(images)[tcfg.rpn.starting_level:])
+    sizes = [(c.shape[1], c.shape[2]) for c in cls]
+    return sum(c[0].numel() for c in cls), proposal_count(tcfg, sizes, cls[0].shape[-1])
+
+
+def draw_arrays(draws):
+    """``TrainDraws`` -> {field: array or tuple of arrays}, its fields set."""
+    return {k: tuple(t.numpy() for t in v) if isinstance(v, tuple) else v.numpy()
+            for k, v in draws._asdict().items() if v is not None}
+
+
+def train_draws_of(arrays):
+    """``draw_arrays``' inverse."""
+    return TrainDraws(**{k: tuple(map(torch.from_numpy, v)) if isinstance(v, tuple)
+                         else torch.from_numpy(v) for k, v in arrays.items()})
+
+
+JAX_STEP = (f"tiny_train_config(kitti_multiclass_lidar_supv), float32, B {B}, {H}x{W}, "
+            "synthetic_train_batch(num_gt=6, num_pts=32), create_train_state(PRNGKey(0), "
+            "total_steps=100), _randomize(seed 0), step key PRNGKey(1)")
+
+
+def jax_step():
+    """The JAX side of the step, once per test run (``run_shared``): the
+    randomized variables, the batch, the draws of the step key, and JAX's
+    losses, ``loss_ema``, score statistics, gradients, updates and
+    parameters after the optimizer's update, as arrays."""
+    def compute():
+        cfg = tiny_train_config(get_config)
+        model, state, tx = create_train_state(cfg, jax.random.PRNGKey(0), total_steps=100,
+                                              image_shape=(H, W))
+        variables = _randomize({"params": state.params, "batch_stats": state.batch_stats})
+        state = state.replace(params=jax.tree.map(jnp.asarray, variables["params"]),
+                              batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
+                              opt_state=tx.init(variables["params"]))
+        batch_np = synthetic_train_batch(cfg, B, (H, W), num_gt=6, num_pts=32)
+        batch = jax.tree.map(jnp.asarray, batch_np)
+        key = jax.random.PRNGKey(1)
+
+        def loss_fn(params):
+            (total, (metrics, new_ema)), updates = model.apply(
+                {"params": params, "batch_stats": state.batch_stats}, batch, key, state.step,
+                state.loss_ema, method=_train_forward, mutable=["batch_stats"])
+            return total, (metrics, new_ema, updates["batch_stats"])
+
+        (total, (jmetrics, jema, jstats)), jgrads = jax.jit(
+            jax.value_and_grad(loss_fn, has_aux=True))(state.params)
+        updates, _ = jax.jit(tx.update)(jgrads, state.opt_state, state.params)
+        jparams = optax.apply_updates(state.params, updates)
+        counts = draw_counts(tiny_train_config(tget_config),
+                             torch.from_numpy(np.array(batch_np["images"])))
+        draws = jax_train_draws(cfg, key, *counts, batch_np["gt_boxes"].shape[1])
+        return dict(
+            variables=jax.tree.map(np.asarray, variables), batch=batch_np,
+            draws=draw_arrays(draws), loss_ema=np.asarray(state.loss_ema),
+            step=np.asarray(state.step), ema=np.asarray(jema),
+            metrics={k: np.asarray(v) for k, v in dict(jmetrics, total_loss=total).items()},
+            grads=_flat(jgrads), params=_flat(jparams), updates=_flat(updates),
+            stats=_flat(jstats))
+
+    return run_shared(f"test_torch_train_step.jax_step: {JAX_STEP}", compute)
+
+
+def port_step(ref):
+    """The port's side on ``jax_step``'s inputs, once per test run
+    (``run_shared``, through ``pack``): its losses, ``loss_ema``, gradients
+    (as JAX leaves, with ``rpn_reg``'s share through the RoI path), the
+    optimizer's updates, the score statistics, and one ``train_step``'s
+    state, metrics and parameters from the same start."""
+    def compute():
+        tcfg = tiny_train_config(tget_config)
+        v = ref["variables"]
+        sd, ema0, step0 = from_jax_train_state(SimpleNamespace(
+            params=v["params"], batch_stats=v["batch_stats"], loss_ema=ref["loss_ema"],
+            step=ref["step"]))
+        assert step0 == 0
+        tmodel = MonoRUn(tcfg)
+        tmodel.load_state_dict(sd)
+        tbatch = {k: torch.from_numpy(np.array(a)) for k, a in ref["batch"].items()}
+        draws = train_draws_of(ref["draws"])
+        paths = list(ref["grads"])
+
+        loss_ema = torch.tensor(ema0)
+        ttotal, (tmetrics, tema) = tmodel.train_forward(tbatch, loss_ema, draws)
+        names = [n for n, _ in tmodel.named_parameters()]
+        tgrads = torch.autograd.grad(ttotal, [p for _, p in tmodel.named_parameters()],
+                                     retain_graph=True)
+        # rpn_reg's gradient through the RPN losses alone; the rest comes by
+        # the proposals (the RoI path)
+        rpn_reg = tmodel.rpn_head.rpn_reg.weight
+        rpn_only = torch.autograd.grad(tmetrics["loss_rpn_cls"] + tmetrics["loss_rpn_bbox"],
+                                       rpn_reg)[0]
+        roi_path = to_jax_leaves({"rpn_head.rpn_reg.weight": tgrads[names.index(
+            "rpn_head.rpn_reg.weight")] - rpn_only}, ["rpn_head/rpn_reg/kernel"])
+        tmetrics = {k: v.detach() for k, v in tmetrics.items()}
+        tmetrics["total_loss"] = ttotal.detach()
+
+        tupdates = to_jax_leaves(dict(zip(names, ttrain.make_optimizer(tcfg, tmodel, 100)
+                                          .update(tgrads))), paths)
+
+        # one train step from the same start
+        tmodel.load_state_dict(sd)
+        opt = ttrain.make_optimizer(tcfg, tmodel, 100)
+        new_state, step_metrics = ttrain.train_step(
+            tmodel, opt, ttrain.TrainState(0, loss_ema), tbatch, draws)
+        return dict(
+            tmetrics=tmetrics, tema=tema.detach(),
+            tgrads=to_jax_leaves(dict(zip(names, tgrads)), paths), tupdates=tupdates,
+            tparams=to_jax_leaves(dict(tmodel.named_parameters()), paths),
+            tstats=to_jax_leaves(dict(tmodel.named_buffers()), list(ref["stats"])),
+            new_step=new_state.step, step_metrics=step_metrics,
+            roi_path=roi_path["rpn_head/rpn_reg/kernel"],
+            lr=float(ttrain.make_lr_schedule(tcfg, 100)(0)))
+
+    return unpack(run_shared(f"test_torch_train_step.port_step: on {JAX_STEP}",
+                             lambda: pack(compute())))
+
+
 @pytest.fixture(scope="module")
 def both():
-    cfg = tiny_train_config(get_config)
-    model, state, tx = create_train_state(cfg, jax.random.PRNGKey(0), total_steps=100,
-                                          image_shape=(H, W))
-    variables = _randomize({"params": state.params, "batch_stats": state.batch_stats})
-    state = state.replace(params=jax.tree.map(jnp.asarray, variables["params"]),
-                          batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
-                          opt_state=tx.init(variables["params"]))
-    batch_np = synthetic_train_batch(cfg, B, (H, W), num_gt=6, num_pts=32)
-    batch = jax.tree.map(jnp.asarray, batch_np)
-    key = jax.random.PRNGKey(1)
-
-    def loss_fn(params):
-        (total, (metrics, new_ema)), updates = model.apply(
-            {"params": params, "batch_stats": state.batch_stats}, batch, key, state.step,
-            state.loss_ema, method=_train_forward, mutable=["batch_stats"])
-        return total, (metrics, new_ema, updates["batch_stats"])
-
-    (total, (jmetrics, jema, jstats)), jgrads = jax.jit(
-        jax.value_and_grad(loss_fn, has_aux=True))(state.params)
-    updates, _ = jax.jit(tx.update)(jgrads, state.opt_state, state.params)
-    jparams = optax.apply_updates(state.params, updates)
-    jmetrics = dict(jmetrics, total_loss=total)
-
-    tcfg = tiny_train_config(tget_config)
-    sd, ema0, step0 = from_jax_train_state(state)
-    assert step0 == 0
-    tmodel = MonoRUn(tcfg)
-    tmodel.load_state_dict(sd)
-    tbatch = {k: torch.from_numpy(np.array(v)) for k, v in batch_np.items()}
-    with torch.no_grad():
-        cls, _ = tmodel.rpn_head(tmodel.extract_feats(tbatch["images"])[tcfg.rpn.starting_level:])
-    sizes = [(c.shape[1], c.shape[2]) for c in cls]
-    n_anchors = sum(c[0].numel() for c in cls)
-    n_props = proposal_count(tcfg, sizes, cls[0].shape[-1])
-    n_gt = batch_np["gt_boxes"].shape[1]
-    draws = jax_train_draws(cfg, key, n_anchors, n_props, n_gt)
-    paths = list(_flat(jgrads))
-
-    loss_ema = torch.tensor(ema0)
-    ttotal, (tmetrics, tema) = tmodel.train_forward(tbatch, loss_ema, draws)
-    names = [n for n, _ in tmodel.named_parameters()]
-    tgrads = torch.autograd.grad(ttotal, [p for _, p in tmodel.named_parameters()],
-                                 retain_graph=True)
-    # rpn_reg's gradient through the RPN losses alone; the rest comes by the
-    # proposals (the RoI path)
-    rpn_reg = tmodel.rpn_head.rpn_reg.weight
-    rpn_only = torch.autograd.grad(tmetrics["loss_rpn_cls"] + tmetrics["loss_rpn_bbox"],
-                                   rpn_reg)[0]
-    roi_path = to_jax_leaves({"rpn_head.rpn_reg.weight": tgrads[names.index(
-        "rpn_head.rpn_reg.weight")] - rpn_only}, ["rpn_head/rpn_reg/kernel"])
-    tmetrics = {k: v.detach() for k, v in tmetrics.items()}
-    tmetrics["total_loss"] = ttotal.detach()
-
-    tupdates = to_jax_leaves(dict(zip(names, ttrain.make_optimizer(tcfg, tmodel, 100)
-                                      .update(tgrads))), paths)
-
-    # one train step from the same start
-    tmodel.load_state_dict(sd)
-    opt = ttrain.make_optimizer(tcfg, tmodel, 100)
-    new_state, step_metrics = ttrain.train_step(tmodel, opt, ttrain.TrainState(0, loss_ema),
-                                                tbatch, draws)
+    """JAX's step and the port's on the same inputs (``jax_step``,
+    ``port_step``), and the port's weights, batch and draws."""
+    ref = jax_step()
+    v = ref["variables"]
     return dict(
-        jmetrics=jmetrics, tmetrics=tmetrics, jema=jema, tema=tema,
-        jgrads=_flat(jgrads), tgrads=to_jax_leaves(dict(zip(names, tgrads)), paths),
-        jparams=_flat(jparams), jupdates=_flat(updates), tupdates=tupdates, tparams=to_jax_leaves(dict(tmodel.named_parameters()), paths),
-        jstats=_flat(jstats), tstats=to_jax_leaves(dict(tmodel.named_buffers()),
-                                                    list(_flat(jstats))),
-        new_state=new_state, step_metrics=step_metrics, draws=draws, sd=sd,
-        variables=variables, batch=batch, tbatch=tbatch, key=key, state=state,
-        roi_path=roi_path["rpn_head/rpn_reg/kernel"],
-        lr=float(ttrain.make_lr_schedule(tcfg, 100)(0)),
-    )
+        port_step(ref), ref=ref, jmetrics=ref["metrics"], jema=ref["ema"],
+        jgrads=ref["grads"], jparams=ref["params"], jupdates=ref["updates"],
+        jstats=ref["stats"], sd=from_jax_params(v["params"], v["batch_stats"]),
+        tbatch={k: torch.from_numpy(np.array(a)) for k, a in ref["batch"].items()},
+        draws=train_draws_of(ref["draws"]))
 
 
 def _rel(got, ref):
@@ -192,19 +260,13 @@ def _rel(got, ref):
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-6))
 
 
-@pytest.mark.parametrize("name", LOSSES + ("mean_iou", "total_loss"))
-def test_losses_match(both, name):
+def check_loss(both, name):
+    """``test_losses_match``: the port's ``name`` against JAX's."""
     got = float(both["tmetrics"][name])
     ref = float(both["jmetrics"][name])
     assert np.isfinite(got)
     rtol = 1e-3 if name in AFTER_PNP else 1e-5
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=rtol * max(abs(ref), 1e-5))
-
-
-def test_loss_ema_and_score_statistics_match(both):
-    np.testing.assert_allclose(float(both["tema"]), float(both["jema"]), rtol=1e-6)
-    for path, ref in both["jstats"].items():
-        assert _rel(both["tstats"][path], ref) < 1e-3, path
 
 
 def test_every_gradient_matches(both):
@@ -249,37 +311,7 @@ def test_parameters_after_one_step_match(both):
                                    err_msg=p)
         atol = 2 * lr + 2 * np.spacing(np.abs(jp[p]).max())
         np.testing.assert_allclose(tp[p], jp[p], rtol=0, atol=atol, err_msg=p)
-    st, m = both["new_state"], both["step_metrics"]
-    assert st.step == 1 and int(m["nonfinite_grad_leaves"]) == 0
+    m = both["step_metrics"]
+    assert both["new_step"] == 1 and int(m["nonfinite_grad_leaves"]) == 0
     np.testing.assert_allclose(float(m["total_loss"]), float(both["jmetrics"]["total_loss"]),
                                rtol=1e-5)
-
-
-def test_refined_reassign_and_debug_branches_match(both):
-    """train.refined_reassign (the cascade-style re-assign and re-sample
-    against the class-refined boxes) and train.debug (GT dims, NOC and a
-    target-weight log-std downstream), together: every loss, port against
-    JAX."""
-    r = dataclasses.replace
-    cfg = tiny_train_config(get_config)
-    cfg = r(cfg, train=r(cfg.train, refined_reassign=True, debug=True))
-    tcfg = tiny_train_config(tget_config)
-    tcfg = r(tcfg, train=r(tcfg.train, refined_reassign=True, debug=True))
-    state = both["state"]
-    model = JMonoRUn(cfg)
-    total, (jm, _) = jax.jit(lambda v, b: model.apply(
-        v, b, both["key"], state.step, state.loss_ema, method=_train_forward,
-        mutable=["batch_stats"])[0])(
-        {"params": state.params, "batch_stats": state.batch_stats}, both["batch"])
-    tmodel = MonoRUn(tcfg)
-    tmodel.load_state_dict(both["sd"])
-    with torch.no_grad():
-        ttotal, (tm, _) = tmodel.train_forward(both["tbatch"], torch.tensor(
-            float(state.loss_ema)), both["draws"])
-    for k in LOSSES + ("mean_iou",):
-        rtol = 1e-3 if k in AFTER_PNP else 1e-5
-        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=rtol,
-                                   atol=rtol * max(abs(float(jm[k])), 1e-5), err_msg=k)
-    np.testing.assert_allclose(float(ttotal), float(total), rtol=1e-5)
-    # the branches changed what the 3D heads train on
-    assert float(tm["loss_dim"]) != float(both["tmetrics"]["loss_dim"])

@@ -5,6 +5,10 @@ The port's state dict (reference mmdet key names) is saved with
 and turned back by the port's ``from_jax_params``: every tensor must come
 back bit for bit. ``load_pth`` loads a reference-style checkpoint (with
 its ``num_batches_tracked`` and loss buffers) strictly.
+
+The ``.pth`` round trip through the JAX converter is in
+``test_torch_weights_pth.py``: files of at most 3 tests, which xdist hands out
+late (ROADMAP's test-time budget).
 """
 
 import jax
@@ -12,14 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from monorun_tpu.config import get_config
-from monorun_tpu.models import init_detector
-from monorun_tpu.utils.checkpoint import convert_torch_checkpoint
 from monorun_tpu_torch.config import get_config as tget_config
 from monorun_tpu_torch.models.detector import MonoRUn, init_random_weights
-from monorun_tpu_torch.utils.weights import from_jax_params, load_pth
+from monorun_tpu_torch.utils.weights import load_pth
 
-from test_torch_serve import H, W, tiny_config
+from test_torch_serve import tiny_config
 from torch_share import cpu_share  # noqa: F401
 
 
@@ -31,23 +32,6 @@ def _port_model(seed=0):
         for t in list(model.parameters()) + list(model.buffers()):
             t.add_(0.05 * torch.rand(t.shape, generator=gen))
     return model
-
-
-def test_pth_round_trip_through_the_jax_converter(tmp_path):
-    model = _port_model()
-    sd = model.state_dict()
-    pth = tmp_path / "port.pth"
-    torch.save({"state_dict": sd}, pth)
-    _, variables = init_detector(tiny_config(get_config), jax.random.PRNGKey(0),
-                                 (H, W), fast=True)
-    params, stats, _, report = convert_torch_checkpoint(
-        str(pth), variables["params"], variables["batch_stats"]
-    )
-    assert set(report.values()) == {"ok"}, report
-    back = from_jax_params(params, stats)
-    assert set(back) == set(sd)
-    for k, v in sd.items():
-        torch.testing.assert_close(back[k], v, rtol=0, atol=0, msg=k)
 
 
 def test_load_pth_reference_layout(tmp_path):
