@@ -228,7 +228,24 @@ Phases, each printing its own lines:
    other validity masks or labels than (i)'s (the same weights, inputs
    and seed, unwarmed) or results outside phase 5's tolerances; the
    times are readings;
-22. a ``kernels`` JSON line (the registers and local memory bytes per
+22. the single-class and LiDAR-supervised presets, and batch 1
+   (``phase_presets``): kitti_car (one class, anchors at ratios
+   0.4/0.7/1.0, class-agnostic NOC head) served at batch 8, then
+   kitti_multiclass and kitti_car at batch 1, the reference's test-time
+   batch, each as phase 17 serves a rung at full width with seeded
+   random weights: detections checked (every valid label 0 at one
+   class), exactly 3 direct-kernel launches per forward and no staged
+   one, the three aligns (8000 proposals and 8 x 48 detections at batch
+   8; 1000 and 48 at batch 1) re-run on the forward's own features and
+   RoIs through the kernel and the plain version with times, bound and
+   share of the bound, ms per batch, per frame and frames/s beside phase
+   4's kitti_multiclass; then kitti_car_lidar_supv and
+   kitti_multiclass_lidar_supv trained as phase 10 trains (3 AdamW steps
+   at full width, ``loss_noc`` finite and above 0, 3 forward and 9
+   backward launches a step, the first step's aligns forward and
+   backward against the plain version), ms per step and peak memory;
+   then phase 5's tiny check at a tiny float32 kitti_car;
+23. a ``kernels`` JSON line (the registers and local memory bytes per
    thread and dtype of the direct kernel, its backward and the four
    staged kernels, as the loaded build reports them, among their keys;
    local memory, a spill, fails the run; each path's launches of the
@@ -238,9 +255,10 @@ Phases, each printing its own lines:
    last, the JSON result line.
 
 Every path (phases 4, 7, 8, 10, 12, 14, 15, each of 16's, each rung of 17,
-each closure of 18, both parity runs of 19, each tool of 20 and each run
-of 21) runs with all launch counts set to 0 just before it and read just
-after (in the process that runs it); a kernel that its path did not
+each closure of 18, both parity runs of 19, each tool of 20, each run
+of 21 and each serving and training of 22) runs with all launch counts
+set to 0 just before it and read just after (in the process that runs
+it); a kernel that its path did not
 launch fails the run. A session built on the card warms itself
 (``utils/warm_start.py``: one forward, 3 launches of the direct kernel);
 those launches, checked at each warm-up, move from the kernels' counts to
@@ -1218,8 +1236,28 @@ def check_train_metrics(m, what):
 def phase_train(flush, dev, card, ab=()):
     """kitti_multiclass training at full width: 3 AdamW steps on a seeded
     synthetic batch, with the checks of the module docstring (phase 10);
-    the step's backward aligns timed in parts and against ``ab``."""
+    the step's backward aligns timed in parts and against ``ab``, then
+    again in float32."""
+    recorded, counts, stats = train_preset("kitti_multiclass", dev, card)
     cfg = get_config("kitti_multiclass")
+    recs, _ = check_train_aligns("train", recorded, cfg, flush, split=True, ab=ab)
+    # the same backwards in float32, the compute dtype of phase 16's step
+    check_train_aligns("train", recorded, cfg, flush, split=True, ab=ab, dtype=torch.float32)
+    del recorded
+    torch.cuda.empty_cache()
+    return recs, counts, stats
+
+
+def train_preset(name, dev, card):
+    """``name`` trained at full width: 3 AdamW steps at batch
+    ``samples_per_device`` on a seeded synthetic batch; finite losses
+    (``loss_noc`` above 0 where the LiDAR loss is on), the frozen
+    parameters unchanged and the trainable ones moved, 3 forward and 9
+    backward launches a step. Returns (the first step's aligns as
+    ``recording_aligns`` keeps them, the counts, ms per step and peak
+    memory)."""
+    cfg = get_config(name)
+    lidar = cfg.noc_head.with_lidar_loss
     Bt = cfg.train.samples_per_device
     H, W = cfg.data.pad_height, cfg.data.pad_width
     model, state, opt = create_train_state(cfg, total_steps=1000, device="cuda", seed=0)
@@ -1248,31 +1286,30 @@ def phase_train(flush, dev, card, ab=()):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             step = {k: v - start[k] for k, v in read_counts().items()}
-            check_launches(step, STEP_LAUNCHES, 1,
-                           f"train step {i}")
-            check_train_metrics(m, f"train step {i}")
+            check_launches(step, STEP_LAUNCHES, 1, f"train {name} step {i}")
+            check_train_metrics(m, f"train {name} step {i}")
             check(float(m["loss_calib"]) == 0.0, "loss_calib is on before step 100")
-            losses.append({k: float(m[k]) for k in TRAIN_LOSSES})
+            if lidar:
+                noc = float(m["loss_noc"])
+                check(math.isfinite(noc) and noc > 0,
+                      f"train {name} step {i}: loss_noc is {noc}, not finite above 0")
+            losses.append({k: float(m[k]) for k in TRAIN_LOSSES + ("loss_noc",) * lidar})
         counts = read_counts()
-    check_launches(counts, STEP_LAUNCHES, TRAIN_STEPS, "train")
+    check_launches(counts, STEP_LAUNCHES, TRAIN_STEPS, f"train {name}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for n in fixed:
-        check(torch.equal(params[n], before[n]), f"parameter {n} moved")
+        check(torch.equal(params[n], before[n]), f"{name}: parameter {n} moved")
     for n in trainable:
-        check(not torch.equal(params[n], before[n]), f"trainable parameter {n} did not move")
+        check(not torch.equal(params[n], before[n]),
+              f"{name}: trainable parameter {n} did not move")
     ms = statistics.median(times[1:])
     print("train " + json.dumps(dict(
-        config="kitti_multiclass", card=card, batch=Bt, canvas=[H, W],
+        config=name, card=card, batch=Bt, canvas=[H, W],
         compute_dtype=cfg.compute_dtype, steps=TRAIN_STEPS, ms_per_step=ms, ms_each=times,
         first_ms=times[0], losses=losses, peak_mem_gib=peak, step=state.step,
         loss_ema=float(state.loss_ema))), flush=True)
-
-    recs, _ = check_train_aligns("train", recorded, cfg, flush, split=True, ab=ab)
-    # the same backwards in float32, the compute dtype of phase 16's step
-    check_train_aligns("train", recorded, cfg, flush, split=True, ab=ab, dtype=torch.float32)
-    del recorded, model, opt
-    torch.cuda.empty_cache()
-    return recs, counts, dict(ms_per_step=ms, peak_mem_gib=peak)
+    del model, opt
+    return recorded, counts, dict(ms_per_step=ms, peak_mem_gib=peak)
 
 
 def check_train_aligns(what, recorded, cfg, flush, split=False, ab=(), dtype=None):
@@ -1385,8 +1422,8 @@ def phase_tiny_train():
 # ---- tiny configuration, GPU against CPU ---------------------------------
 
 
-def tiny_config():
-    cfg = get_config("kitti_multiclass")
+def tiny_config(name="kitti_multiclass"):
+    cfg = get_config(name)
     r = dataclasses.replace
     return r(
         cfg, compute_dtype="float32",
@@ -2449,6 +2486,47 @@ FAST_RUNGS = ("kitti_multiclass_fast", "kitti_multiclass_fast_r50", "kitti_multi
               "kitti_multiclass_fast2_r50", "kitti_multiclass_fast3_r50")
 
 
+def serve_preset(name, batch, card, flush, path, tag):
+    """``name`` served at ``batch`` through ``init_inference`` and
+    ``InferenceSession.run`` on seeded weights and requests, as phases 17
+    and 22 serve: 3 direct-kernel launches per forward and no other, no
+    staged pyramid, the detections checked (every valid label 0 where the
+    preset has one class), the forward's own aligns re-run through the
+    kernel and the plain version (``check_recorded_aligns``). Returns (the
+    align records, the counts, the fields of the printed line that the
+    two phases share)."""
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    sess = init_inference(name, batch_size=batch, device="cuda", seed=0, raw=True)
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=sess.device).manual_seed(1)
+    requests = [kitti_inputs(cfg, batch, gen, sess.device) for _ in range(REQUESTS + 2)]
+    torch.cuda.reset_peak_memory_stats()
+    with align_env({}):
+        reset_counts()
+        times, dets, recorded = serve_requests(sess, requests, record=True)
+        counts = read_counts()
+    check_launches(counts, {"roi_align": 3}, len(requests), path)
+    check(all(r[4] is None for r in recorded), f"{path}: a staged pyramid was built")
+    for det in dets:
+        check_detections(det, cfg, batch)
+        if cfg.num_classes == 1:
+            check(bool((det.labels[det.valid] == 0).all()),
+                  f"{path}: a valid detection is not labelled 0")
+    ms = statistics.median(times[2:])
+    recs = check_recorded_aligns(tag, recorded, cfg, flush)[0]
+    line = dict(
+        config=name, card=card, batch=batch, requests=REQUESTS, ms_per_batch=ms,
+        ms_per_frame=ms / batch, frames_per_s=batch * 1e3 / ms,
+        launches_per_forward={k: v / len(requests) for k, v in counts.items() if v},
+        align_rois=[int(r[1].shape[0]) for r in recorded], ms_each=times,
+        valid_detections=[int(d.valid.sum()) for d in dets],
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, build_s=build_s)
+    del sess, requests, dets, recorded
+    torch.cuda.empty_cache()
+    return recs, counts, line
+
+
 def phase_fast(card, flush, base_ms):
     """Phase 17 (the module docstring): every fast rung served at batch 8,
     its launches per forward, its aligns against the plain version, beside
@@ -2457,42 +2535,63 @@ def phase_fast(card, flush, base_ms):
     recs, counts_of = [], {}
     for name in FAST_RUNGS:
         cfg = get_config(name)
-        t0 = time.perf_counter()
-        sess = init_inference(name, batch_size=BATCH, device="cuda", seed=0, raw=True)
-        build_s = time.perf_counter() - t0
-        gen = torch.Generator(device=sess.device).manual_seed(1)
-        requests = [kitti_inputs(cfg, BATCH, gen, sess.device) for _ in range(REQUESTS + 2)]
-        torch.cuda.reset_peak_memory_stats()
-        with align_env({}):
-            reset_counts()
-            times, dets, recorded = serve_requests(sess, requests, record=True)
-            counts = read_counts()
-        check_launches(counts, {"roi_align": 3}, len(requests), f"serve {name}")
-        for det in dets:
-            check_detections(det, cfg, BATCH)
-        ms = statistics.median(times[2:])
-        rung_recs = check_recorded_aligns(f"fast {name}", recorded, cfg, flush)[0]
+        rung_recs, counts, line = serve_preset(name, BATCH, card, flush, f"serve {name}",
+                                               f"fast {name}")
         print("fast " + json.dumps(dict(
-            config=name, card=card, batch=BATCH, requests=REQUESTS, ms_per_batch=ms,
-            frames_per_s=BATCH * 1e3 / ms, launches_per_forward={
-                k: v / len(requests) for k, v in counts.items() if v},
-            kitti_multiclass_ms_per_batch=base_ms,
+            line, kitti_multiclass_ms_per_batch=base_ms,
             kitti_multiclass_frames_per_s=BATCH * 1e3 / base_ms,
-            align_rois=[int(r[1].shape[0]) for r in recorded],
             align_max_abs_err=max(r["max_abs_err"] for r in rung_recs),
             backbone_depth=cfg.backbone.depth, test_scale=cfg.data.test_scale,
             pad=[cfg.data.pad_height, cfg.data.pad_width],
-            dense_size=cfg.noc_head.dense_size, ms_each=times,
-            valid_detections=[int(d.valid.sum()) for d in dets],
-            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, build_s=build_s)),
-            flush=True)
+            dense_size=cfg.noc_head.dense_size)), flush=True)
         recs += rung_recs
         counts_of[name] = counts
-        del sess, requests, dets, recorded
-        torch.cuda.empty_cache()
     with align_env({}):
         phase_tiny(tiny_no_carafe_config(), "tiny no-CARAFE")
     return recs, counts_of
+
+
+# ---- the single-class and LiDAR-supervised presets, and batch 1 ----------------
+
+PRESET_SERVING = (("kitti_car", BATCH), ("kitti_multiclass", 1), ("kitti_car", 1))
+LIDAR_PRESETS = ("kitti_car_lidar_supv", "kitti_multiclass_lidar_supv")
+
+
+def phase_presets(card, flush, base_ms, dev):
+    """Phase 22 (the module docstring): kitti_car served at batch 8, then
+    kitti_multiclass and kitti_car at batch 1, each as phase 17 serves a
+    rung; both LiDAR presets trained as phase 10 trains; then phase 5's
+    tiny check at kitti_car. Returns (the serving align records, the
+    backward records, the training forwards' largest error, each path's
+    counts)."""
+    t_phase = time.perf_counter()
+    recs, bwd_recs, fwd_err, counts_of = [], [], 0.0, {}
+    for name, batch in PRESET_SERVING:
+        path = f"serve {name}" if batch == BATCH else f"serve b{batch} {name}"
+        cfg = get_config(name)
+        path_recs, counts, line = serve_preset(name, batch, card, flush, path,
+                                               f"presets {path}")
+        print("presets " + json.dumps(dict(
+            line, path=path, kitti_multiclass_b8_ms_per_batch=base_ms,
+            kitti_multiclass_b8_ms_per_frame=base_ms / BATCH,
+            aligns=[{k: r[k] for k in ("call", "rois", "out", "ms", "bound_ms", "bound_by",
+                                        "bound_share", "plain_ms", "max_abs_err")}
+                    for r in path_recs],
+            classes=cfg.num_classes, anchor_ratios=list(cfg.rpn.anchors.ratios))), flush=True)
+        recs += path_recs
+        counts_of[path] = counts
+    for name in LIDAR_PRESETS:
+        recorded, counts, _ = train_preset(name, dev, card)
+        r, err = check_train_aligns(f"presets train {name}", recorded, get_config(name), flush)
+        bwd_recs += r
+        fwd_err = max(fwd_err, err)
+        counts_of[f"train {name}"] = counts
+        del recorded
+        torch.cuda.empty_cache()
+    with align_env({}):
+        phase_tiny(tiny_config("kitti_car"), "tiny kitti_car")
+    print(f"presets phase_s {time.perf_counter() - t_phase:.1f}", flush=True)
+    return recs, bwd_recs, fwd_err, counts_of
 
 
 # ---- the training closure: train, serve, KITTI AP --------------------------------
@@ -3000,6 +3099,8 @@ def main() -> int:
         parity_counts, parity_recs = phase_parity(card, flush)
         tool_counts = phase_profile_tools(card, args.profile)
         cold_counts = phase_cold_start(card, build_all_s)
+        preset_recs, preset_bwd_recs, preset_fwd_err, preset_counts = phase_presets(
+            card, flush, serve_ms, dev)
     except SmokeFailure as e:
         print(f"FAIL {e}", file=sys.stderr)
         return 1
@@ -3007,10 +3108,11 @@ def main() -> int:
     direct = kernel_record("roi_align", default_counts["roi_align"], forward)
     direct["max_abs_err"] = max([r["max_abs_err"]
                                  for r in synthetic + forward + eval_recs + demo_recs
-                                 + loop_val_recs + fast_recs + parity_recs]
-                                + [loop_fwd_err, dp["align_err"], closure_fwd_err])
+                                 + loop_val_recs + fast_recs + parity_recs + preset_recs]
+                                + [loop_fwd_err, dp["align_err"], closure_fwd_err,
+                                   preset_fwd_err])
     direct["calls"] += call_records(eval_recs + demo_recs + loop_val_recs + fast_recs
-                                    + parity_recs)
+                                    + parity_recs + preset_recs)
     launches = {"roi_align_tile": micro["roi_align_tile"],
                 "roi_align_band_tiered": paths["band tiered"]["roi_align_band_tiered"],
                 "roi_align_band_packed": micro["roi_align_band_packed"],
@@ -3022,8 +3124,8 @@ def main() -> int:
         for name, n in launches.items()]
     kernels[1]["max_abs_err"] = max(r["max_abs_err"]
                                     for r in backward + train_recs + loop_recs + dp["recs"]
-                                    + closure_recs)
-    kernels[1]["calls"] += call_records(loop_recs + closure_recs)
+                                    + closure_recs + preset_bwd_recs)
+    kernels[1]["calls"] += call_records(loop_recs + closure_recs + preset_bwd_recs)
     for rec in kernels:
         rec["attributes"] = attributes[by_name[rec["name"]]]
     # each path's own count, read just after it ran from counts set to 0
@@ -3040,13 +3142,17 @@ def main() -> int:
                                   **{path: c["roi_align"]
                                      for path, c in {**parity_counts, **tool_counts}.items()},
                                   "cold_start": cold_counts,
-                                  "warm_start": WARM_LAUNCHES["roi_align"]}
+                                  "warm_start": WARM_LAUNCHES["roi_align"],
+                                  **{path: c["roi_align"] for path, c in preset_counts.items()}}
     kernels[1]["launches_by_path"] = {"train": train_counts["roi_align_backward"],
                                       "train_loop": loop_counts["roi_align_backward"],
                                       **{path: dp[path]["roi_align_backward"]
                                          for path in DP_PATHS if path != "eval_nccl"},
                                       **{f"closure {dtype}": c["roi_align_backward"]
-                                         for dtype, c in closure_counts.items()}}
+                                         for dtype, c in closure_counts.items()},
+                                      **{path: c["roi_align_backward"]
+                                         for path, c in preset_counts.items()
+                                         if path.startswith("train ")}}
     print(f"clocks {clocks_line()}", flush=True)
     print(f"seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,6 +14,7 @@ the PnP solve compound float32 summation-order differences.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -22,10 +23,15 @@ import pytest
 import torch
 
 from monorun_tpu.config import get_config
+from monorun_tpu.models import detector as jdetector
 from monorun_tpu.models import init_detector
+from monorun_tpu.ops.pnp import pnp_uncert as jpnp_uncert
 from monorun_tpu_torch.apis.inference import InferenceSession, init_inference
 from monorun_tpu_torch.config import get_config as tget_config
+from monorun_tpu_torch.models import detector as tdetector
 from monorun_tpu_torch.models.detector import HeadDraws, MonoRUn
+from monorun_tpu_torch.ops.pnp import PnPResult
+from monorun_tpu_torch.ops.pnp import pnp_uncert as tpnp_uncert
 from monorun_tpu_torch.utils.weights import from_jax_params
 
 from test_torch_modules import _randomize, jax_mc_masks
@@ -34,9 +40,9 @@ from torch_share import cpu_share  # noqa: F401
 B, H, W = 2, 64, 128
 
 
-def tiny_config(get_cfg):
-    """dryrun-style tiny config of kitti_multiclass (either package's)."""
-    cfg = get_cfg("kitti_multiclass")
+def tiny_config(get_cfg, preset="kitti_multiclass"):
+    """dryrun-style tiny config of ``preset`` (either package's)."""
+    cfg = get_cfg(preset)
     r = dataclasses.replace
     return r(
         cfg, compute_dtype="float32",
@@ -71,36 +77,81 @@ def jax_variables(cfg):
     return _randomize(variables)
 
 
-@pytest.fixture(scope="module")
-def both():
-    cfg = tiny_config(get_config)
+def jax_serve(preset, pnp=False):
+    """JAX's ``serve_raw`` of the tiny ``preset`` on ``_inputs()``: its
+    randomized variables, its detections (a dict of arrays) and its draws,
+    which ``heads_forward`` splits from the key into MC and PnP keys. With
+    ``pnp``, also what JAX's forward hands ``pnp_uncert`` (its six
+    positional inputs, then ``ransac_thr``) and what it gets back, returned
+    by the same ``jax.jit`` program."""
+    cfg = tiny_config(get_config, preset)
     model, _ = init_detector(cfg, jax.random.PRNGKey(0), (H, W), fast=True)
     variables = jax_variables(cfg)
     raw, cam, shapes = _inputs()
     key = jax.random.PRNGKey(1)
-    jdet = jax.jit(
-        lambda v, a, c, s, k: model.apply(v, a, c, s, k, method=model.serve_raw)
-    )(variables, jnp.asarray(raw), jnp.asarray(cam), jnp.asarray(shapes), key)
+    stash = []
 
-    # the JAX draws: heads_forward splits its key into MC and PnP keys
+    def spy(*args, **kw):
+        res = jpnp_uncert(*args, **kw)
+        stash.append(dict(inputs=args + (kw["ransac_thr"],), result=tuple(res)))
+        return res
+
+    def serve(v, a, c, s, k):
+        return model.apply(v, a, c, s, k, method=model.serve_raw), stash[:1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        if pnp:
+            mp.setattr(jdetector, "pnp_uncert", spy)
+        jdet, captured = jax.jit(serve)(variables, jnp.asarray(raw), jnp.asarray(cam),
+                                        jnp.asarray(shapes), key)
+
     rng_mc, rng_pnp = jax.random.split(key)
     K = cfg.test.head_slots
     masks = jax_mc_masks(cfg.global_head, rng_mc, B * K, cfg.neck.out_channels)
     n_pts = cfg.noc_head.dense_size ** 2
     keys = np.array(jax.random.uniform(
         rng_pnp, (B * K, cfg.pose_head.ransac_hypotheses, n_pts)))
-    draws = HeadDraws(tuple(torch.from_numpy(m.copy()) for m in masks),
-                      torch.from_numpy(keys))
+    out = dict(variables=jax.tree.map(np.asarray, variables),
+               det=jax.tree.map(np.asarray, jdet._asdict()), masks=masks, keys=keys)
+    if pnp:
+        out["pnp"] = jax.tree.map(np.asarray, captured[0])
+    return out
 
-    tmodel = MonoRUn(tiny_config(tget_config))
+
+def port_serve(preset, ref, record=None):
+    """The port's ``serve_raw`` of the tiny ``preset`` on the same inputs,
+    weights and draws as ``jax_serve``'s ``ref``. Where ``ref`` holds JAX's
+    ``pnp``, the port's forward takes JAX's PnP result in place of its own
+    solve, as it takes JAX's draws; ``record`` gets what the port would
+    have handed the PnP (its inputs, then its keywords) and the port's own
+    solve on JAX's inputs."""
+    variables = ref["variables"]
+    raw, cam, shapes = _inputs()
+    draws = HeadDraws(tuple(torch.from_numpy(np.array(m)) for m in ref["masks"]),
+                      torch.from_numpy(np.array(ref["keys"])))
+    tmodel = MonoRUn(tiny_config(tget_config, preset))
     tmodel.load_state_dict(from_jax_params(variables["params"],
                                            variables["batch_stats"]))
-    with torch.no_grad():
-        tdet = tmodel.eval().serve_raw(
+
+    def on_jax_pnp(*args, **kw):
+        *jargs, thr = (torch.from_numpy(np.array(a)) for a in ref["pnp"]["inputs"])
+        record.append(dict(inputs=args + (kw["ransac_thr"],), keywords=kw,
+                           solve=tpnp_uncert(*jargs, **dict(kw, ransac_thr=thr))))
+        return PnPResult(*(torch.from_numpy(np.array(a)) for a in ref["pnp"]["result"]))
+
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        if "pnp" in ref:
+            mp.setattr(tdetector, "pnp_uncert", on_jax_pnp)
+        return tmodel.eval().serve_raw(
             torch.from_numpy(raw), torch.from_numpy(cam), torch.from_numpy(shapes),
             draws,
         )
-    return jdet, tdet
+
+
+@pytest.fixture(scope="module")
+def both():
+    ref = jax_serve("kitti_multiclass")
+    return SimpleNamespace(**ref["det"]), port_serve("kitti_multiclass", ref)
 
 
 def _close(got, ref, rtol):

@@ -53,9 +53,9 @@ AFTER_PNP = ("loss_score", "mean_iou")
 LOSS_CASES = LOSSES + ("mean_iou", "total_loss")   # test_losses_match's cases, by file
 
 
-def tiny_train_config(get_cfg):
-    """``tests/test_train_step.py``'s tiny lidar configuration."""
-    cfg = get_cfg("kitti_multiclass_lidar_supv")
+def tiny_train_config(get_cfg, preset="kitti_multiclass_lidar_supv"):
+    """``tests/test_train_step.py``'s tiny lidar configuration, of ``preset``."""
+    cfg = get_cfg(preset)
     r = dataclasses.replace
     return r(
         cfg, compute_dtype="float32",

@@ -21,6 +21,11 @@ Run from the repository root (a few minutes; it starts the ``--x64``
 process itself and prints one JSON object)::
 
     PYTHONPATH=.:tests JAX_PLATFORMS=cpu python tests/torch_float64_refs.py
+
+``--train-x64 PRESET SCOPE SRC DST`` is the float64 arbiter of
+``tests/test_torch_car_train_step.py``, which starts it: JAX's train
+forward and the gradients of one module's parameters in float64
+(``train_x64``), in a process of its own.
 """
 
 import contextlib
@@ -203,7 +208,78 @@ def step_figures(which):
     return dict(losses=out, logstd=stats)
 
 
+def train_x64(preset, scope, src, dst):
+    """JAX's ``value_and_grad`` of ``_train_forward`` at the tiny
+    ``preset`` in float64, on the float32 variables, batch, ``step`` and
+    ``loss_ema`` saved in ``src`` (``torch_share.save_tree``), under the
+    step key ``PRNGKey(1)``; its metrics, ``loss_ema`` and the gradients of
+    the parameters under ``scope`` (as ``_flat`` leaves, the rest of the
+    parameters held constant) go to ``dst``.
+
+    ``jax.numpy.float32`` is float64 before ``monorun_tpu`` is imported, so
+    the package's float32 casts and defaults widen, as ``float64_everywhere``
+    widens the port's. Every random draw stays the float32 draw, widened:
+    ``uniform``, ``normal`` and ``bernoulli`` draw float32 values as they do
+    without ``jax_enable_x64``, so the masks, the samples and the RANSAC
+    keys are the float32 step's."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    import jax.random as jr
+
+    jnp.float32 = jnp.float64
+    uniform, normal = jr.uniform, jr.normal
+
+    def uniform32(key, shape=(), dtype=None, minval=0.0, maxval=1.0):
+        return uniform(key, shape, np.float32, minval, maxval).astype(np.float64)
+
+    def normal32(key, shape=(), dtype=None):
+        return normal(key, shape, np.float32).astype(np.float64)
+
+    def bernoulli32(key, p=0.5, shape=None):
+        p = jnp.asarray(p, np.float32)
+        return uniform(key, p.shape if shape is None else shape, np.float32) < p
+
+    jr.uniform, jr.normal, jr.bernoulli = uniform32, normal32, bernoulli32
+
+    from monorun_tpu.config import get_config
+    from monorun_tpu.models.detector import MonoRUn, _train_forward
+
+    from test_torch_train_step import _flat, tiny_train_config
+    from torch_share import load_tree, save_tree
+
+    def wide(a):
+        a = np.asarray(a)
+        return jnp.asarray(a.astype(np.float64) if a.dtype == np.float32 else a)
+
+    ins = jax.tree.map(wide, load_tree(src))
+    model = MonoRUn(tiny_train_config(get_config, preset))
+
+    def loss_fn(sub, ins):
+        variables = {"params": dict(ins["variables"]["params"], **{scope: sub}),
+                     "batch_stats": ins["variables"]["batch_stats"]}
+        (total, (metrics, new_ema)), _ = model.apply(
+            variables, ins["batch"], jax.random.PRNGKey(1), ins["step"], ins["loss_ema"],
+            method=_train_forward, mutable=["batch_stats"])
+        return total, (metrics, new_ema)
+
+    # the other variables and the batch are arguments, not constants that XLA
+    # would fold (the backbone's forward, in the compiler)
+    (total, (metrics, ema)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        ins["variables"]["params"][scope], ins)
+    grads = {f"{scope}/{k}": g for k, g in _flat(grads).items()}
+    assert all(g.dtype == np.float64 for g in grads.values())
+    save_tree(dst, dict(
+        metrics={k: np.asarray(v) for k, v in dict(metrics, total_loss=total).items()},
+        ema=np.asarray(ema), grads=grads))
+
+
 def main():
+    if "--train-x64" in sys.argv:
+        train_x64(*sys.argv[sys.argv.index("--train-x64") + 1:][:4])
+        return
     if "--x64" in sys.argv:
         print(json.dumps(jax_x64()))
         return

@@ -88,7 +88,7 @@ def _unflatten(spec, leaves):
     return items if "l" in spec else tuple(items)
 
 
-def _save(path, tree):
+def save_tree(path, tree):
     leaves = []
     spec = json.dumps(_flatten(tree, leaves))
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -97,7 +97,7 @@ def _save(path, tree):
     os.replace(tmp, path)
 
 
-def _load(path):
+def load_tree(path):
     with np.load(path, allow_pickle=False) as z:
         leaves = {k: z[k] for k in z.files}
     return _unflatten(json.loads(str(leaves.pop(_TREE))), leaves)
@@ -216,10 +216,10 @@ def run_shared(key: str, compute):
             fcntl.flock(lock, fcntl.LOCK_EX)
             try:
                 if not os.path.exists(name + ".npz"):
-                    _save(name + ".npz", compute())
+                    save_tree(name + ".npz", compute())
             finally:
                 fcntl.flock(lock, fcntl.LOCK_UN)
-        return _load(name + ".npz")
+        return load_tree(name + ".npz")
 
 
 def pack(obj):
